@@ -5,25 +5,42 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. The card: ``nvidia-smi`` name and power limit, the torch device name;
-   build every kernel of the main path from ``kafkabalancer_tpu_torch/
-   csrc`` with nvcc (sm_90a) and print the build seconds.
-2. Each kernel against its plain torch version on the card, on the
-   inputs the main path gives it (captured from a one-iteration session)
-   at the 10k x 100 bucket and at 131072 x 256, sweeping allow_leader,
-   restricted ``allowed`` and the colocation counts. Tolerance: zero —
-   all eight outputs equal under ``==``. Device times (CUDA events, L2
-   flushed, the host's per-call cost kept out by a spin kernel), host
-   times per call, the plain version's times and the bound.
+   build every kernel from ``kafkabalancer_tpu_torch/csrc`` with nvcc
+   (sm_90a), one process per source, all started together, and print
+   each build's seconds and ptxas resource lines.
+2. The scoring kernel (``shard_score``) against its plain torch version
+   on the card, on the inputs the main path gives it (captured from a
+   one-iteration session) at the 10k x 100 bucket and at 131072 x 256,
+   sweeping allow_leader, restricted ``allowed`` and the colocation
+   counts. Tolerance: zero — all eight outputs equal under ``==``.
+   Device times (CUDA events, L2 flushed, the host's per-call cost kept
+   out by a spin kernel), host times per call, the plain version's times
+   and the bound.
+2b. The whole-session kernel (``pallas_session``) against its plain
+   version on the card, on the first chunk of ``plan(engine="pallas")``
+   at the 10k x 100 bucket (budget: the whole chunk) and at 131072 x 256
+   (budget 4000), over allow_leader, restricted ``allowed`` and batch 1
+   and 100 (128 at scale). Tolerance: zero — all seven outputs equal
+   under ``==``, and two launches give identical bits. Device time per
+   launch, iterations, ms per iteration, the torch session's ms per
+   iteration on the same inputs, the plain version's time and the bound.
 3. The main path through the CLI: a 10k-partition x 100-broker synthetic
    cluster planned by ``kafkabalancer_tpu_torch.cli.run`` with
-   ``-fused -fused-batch=100``; rc 0, a parseable plan, the kernel's
-   launch count > 0, the final unbalance (host oracle) below the
-   input's; then the same session with the plain scorer must emit the
-   identical plan.
+   ``-fused -fused-batch=100``; rc 0, a parseable plan, the scoring
+   kernel's launch count > 0, the final unbalance (host oracle) below
+   the input's; then the same session with the plain scorer must emit
+   the identical plan.
+3b. The same cluster through ``cli.run -fused -fused-engine=pallas
+   -fused-batch=100``: rc 0, a parseable plan, the whole-session kernel's
+   launch count > 0, the final unbalance below the input's, and a plan
+   byte-identical to ``plan(engine="pallas-interpret")`` on the card.
+   Whether it equals phase 3's plan is printed (a finding, not a check).
 4. Scale: a 131072 x 256 cluster through ``plan`` for a bounded number of
-   moves; time per session iteration.
+   moves; time per session iteration. 4b: the same with
+   ``engine="pallas"``.
 
-The last two stdout lines are the kernels JSON line and
+Each path's launch counts are set to 0 just before it runs and read just
+after. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -47,6 +64,10 @@ SPIN_CYCLES_PER_MS = 1_980_000
 MAIN_SHAPE = (10000, 100)
 SCALE_SHAPE = (131072, 256)
 SCALE_MOVES = 4000
+MAIN_REASSIGN = 1000000  # the CLI runs' -max-reassign
+KERNEL_SOURCES = ("shard_score.cu", "pallas_session.cu")
+B2_NAMES = ("replicas", "loads", "n", "move_p", "move_slot", "move_src",
+            "move_tgt")
 
 
 def log(msg: str) -> None:
@@ -252,6 +273,158 @@ def check_k1(base, label):
                 max_abs_err=err)
 
 
+class _Captured(Exception):
+    """Stops a plan once its first chunk's session arguments are seen."""
+
+
+def capture_session(n_parts, n_brokers, budget, seed, dev):
+    """The whole-session kernel's arguments at the first chunk of
+    ``plan(engine="pallas")`` on a synthetic cluster."""
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    seen = []
+    real = ps.pallas_session
+
+    def capture(*args, **kw):
+        seen.append((list(args), dict(kw)))
+        raise _Captured()
+
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=seed, weighted=True)
+    ps.pallas_session = capture
+    try:
+        plan(pl, cfg, budget, batch=100, engine="pallas", device=dev)
+    except _Captured:
+        pass
+    finally:
+        ps.pallas_session = real
+    if not seen:
+        fail(f"no session call captured at {n_parts}x{n_brokers}")
+    return seen[0]
+
+
+def b2_variant(args, kw, allow_leader, restricted, batch):
+    import torch
+
+    a, k = list(args), dict(kw)
+    a[14] = batch
+    k["allow_leader"] = allow_leader
+    if restricted:
+        P, B = a[1].shape[0], a[0].shape[0]
+        g = torch.Generator(device=a[0].device).manual_seed(SEED)
+        a[3] = torch.rand((P, B), generator=g, device=a[0].device) < 0.6
+        k["all_allowed"] = False
+    return a, k
+
+
+def b2_state(a, k):
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    return ps.SessionState(a[0], a[1], a[3], *a[4:11], k["all_allowed"])
+
+
+def k1_session_bytes(P, R, B, has_allowed):
+    """Bytes one scoring pass must move at the session's shapes: replicas,
+    row columns, member (and allowed) masks, the broker vectors and the
+    pair frame read once, the key words written once."""
+    B2 = max(1, B // 2)
+    return (P * R * 4 + P * 5 * 4 + P * B * (2 if has_allowed else 1)
+            + B * 9 + 12 + B2 * 9 + 8 * (2 * B + 2 * B2))
+
+
+def b2_bound_ms(P, R, B, has_allowed, iters, n):
+    """iterations x the scoring pass's bytes + the commit's bytes (per
+    move: a replica cell, two member bytes, four log words; per iteration:
+    the loads and broker counts), over the HBM rate."""
+    by = iters * k1_session_bytes(P, R, B, has_allowed) + n * 22 + iters * 8 * B
+    return 1e3 * by / PEAK_BYTES_PER_S, by
+
+
+def check_b2(args, kw, label, main_batch, flush):
+    """Phase 2b at one shape: every variant equal to the plain version and
+    repeatable; returns the main variant's timings."""
+    import torch
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    for allow_leader in (False, True):
+        for restricted in (False, True):
+            for batch in (1, main_batch):
+                a, k = b2_variant(args, kw, allow_leader, restricted, batch)
+                i0 = obs.REGISTRY.counter_get("solver.session_iterations")
+                t0 = time.perf_counter()
+                got = ps.pallas_session(*a, **k)
+                wall = time.perf_counter() - t0
+                iters = int(obs.REGISTRY.counter_get("solver.session_iterations") - i0)
+                again = ps.pallas_session(*a, **k)
+                t0 = time.perf_counter()
+                ref = ps.pallas_session_plain(*a, **k)
+                torch.cuda.synchronize()
+                plain_wall = time.perf_counter() - t0
+                for name, x, y, z in zip(B2_NAMES, got, again, ref):
+                    same = (
+                        x == y == z if not torch.is_tensor(x)
+                        else torch.equal(x, y) and torch.equal(x, z)
+                    )
+                    if not same:
+                        fail(
+                            f"pallas_session {label} allow_leader={allow_leader} "
+                            f"restricted={restricted} batch={batch}: output "
+                            f"{name} differs from the plain version or between "
+                            f"launches"
+                        )
+                log(
+                    f"pallas_session {label} allow_leader={allow_leader} "
+                    f"restricted={restricted} batch={batch}: equal (7 outputs, "
+                    f"two launches identical), {got[2]} moves in {iters} "
+                    f"iterations, {1e3 * wall} ms host wall per call, plain "
+                    f"{1e3 * plain_wall} ms host wall"
+                )
+    a, k = b2_variant(args, kw, False, False, main_batch)
+    P, R = a[1].shape
+    B = a[0].shape[0]
+    i0 = obs.REGISTRY.counter_get("solver.session_iterations")
+    n = ps.pallas_session(*a, **k)[2]
+    iters = int(obs.REGISTRY.counter_get("solver.session_iterations") - i0)
+    reps = 5
+    states = iter([b2_state(a, k) for _ in range(2 + 2 * reps)])
+    ms, host_ms = cuda_ms(
+        lambda: ps.launch(next(states), *a[11:16], k["max_moves"], False),
+        reps, flush,
+    )
+    plain_ms, _ = cuda_ms(lambda: ps.pallas_session_plain(*a, **k), 1, flush)
+    # the torch session (engine="xla") on the same inputs, host clock
+    member = b2_state(a, k).member
+    s0 = obs.REGISTRY.counter_get("solver.session_seconds")
+    i0 = obs.REGISTRY.counter_get("solver.session_iterations")
+    scan.session(
+        a[0], a[1], member, None, *a[4:14], max_moves=k["max_moves"],
+        allow_leader=False, batch=main_batch,
+    )
+    torch.cuda.synchronize()
+    xla_s = obs.REGISTRY.counter_get("solver.session_seconds") - s0
+    xla_it = obs.REGISTRY.counter_get("solver.session_iterations") - i0
+    bound_ms, by = b2_bound_ms(P, R, B, False, iters, n)
+    log(
+        f"pallas_session {label} (P={P} B={B} R={R}, batch={main_batch}, "
+        f"budget={a[13]}, main-path variant): {n} moves in {iters} iterations; kernel {ms} ms per launch "
+        f"on the device ({ms / iters} ms per iteration, {host_ms} ms host to "
+        f"launch); torch session {1e3 * xla_s / xla_it} ms per iteration "
+        f"({xla_it} iterations, host clock); plain {plain_ms} ms on the "
+        f"device; bound {bound_ms} ms (bytes: {iters} iterations x "
+        f"{k1_session_bytes(P, R, B, False)} B per scoring pass + {n} moves x "
+        f"22 B + {iters} x 8 x {B} B = {by} B at {PEAK_BYTES_PER_S} B/s)"
+    )
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                max_abs_err=0.0)
+
+
 def phase_main_path(dev):
     """Phase 3: the CLI's -fused path on the card, then the same session
     with the plain scorer."""
@@ -330,7 +503,7 @@ def phase_main_path(dev):
     if out2.getvalue() != out.getvalue():
         fail("the plain scorer's session emitted a different plan")
     log("main path: the plain scorer's session emitted the identical plan")
-    return launches
+    return launches, out.getvalue(), path
 
 
 def phase_scale(dev):
@@ -366,6 +539,117 @@ def phase_scale(dev):
     )
 
 
+def phase_pallas_path(dev, xla_plan, path):
+    """Phase 3b: the CLI's -fused -fused-engine=pallas path on the card on
+    phase 3's cluster file, then ``plan(engine="pallas-interpret")`` on
+    the card."""
+    import torch
+
+    from kafkabalancer_tpu_torch import cli, obs
+    from kafkabalancer_tpu_torch.balancer.costmodel import (
+        get_bl,
+        get_broker_load,
+        get_unbalance_bl,
+    )
+    from kafkabalancer_tpu_torch.codecs import (
+        get_partition_list_from_reader,
+        write_partition_list,
+    )
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+
+    with open(path) as fh:
+        text = fh.read()
+
+    def unbalance(p):
+        return get_unbalance_bl(get_bl(get_broker_load(p)))
+
+    u0 = unbalance(get_partition_list_from_reader(text, True))
+    args = ["kafkabalancer", "-input-json", "-input", path, "-fused",
+            "-fused-engine=pallas", "-fused-batch=100",
+            f"-max-reassign={MAIN_REASSIGN}", "-min-unbalance=1e-7"]
+    out, err = io.StringIO(), io.StringIO()
+    ps.pallas_session.launches = 0
+    sk.shard_score.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.run(io.StringIO(""), out, err, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ps.pallas_session.launches
+    k1_launches = sk.shard_score.launches
+    if rc != 0:
+        fail(f"cli.run -fused-engine=pallas returned {rc}: {err.getvalue()[-2000:]}")
+    doc = json.loads(out.getvalue())
+    if doc.get("version") != 1 or not doc.get("partitions"):
+        fail("the pallas plan is not a non-empty reassignment document")
+    if launches <= 0:
+        fail("the pallas path did not launch the pallas_session kernel")
+    final = get_partition_list_from_reader(text, True)
+    by_key = {(p.topic, p.partition): p for p in final.partitions}
+    for row in doc["partitions"]:
+        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
+    u1 = unbalance(final)
+    if not u1 < u0:
+        fail(f"pallas path: final unbalance {u1} is not below the input's {u0}")
+    iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
+    sess_s = obs.REGISTRY.counter_get("solver.session_seconds")
+    log(
+        f"pallas path: cli.run -fused -fused-engine=pallas -fused-batch=100 on "
+        f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: rc 0, {len(doc['partitions'])} moves "
+        f"emitted, {wall} s wall ({sess_s} s in session launches and reads, "
+        f"{iters} iterations), pallas_session launches {launches}, "
+        f"shard_score launches {k1_launches}, unbalance {u0} -> {u1}"
+    )
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    opl = plan(get_partition_list_from_reader(text, True), cfg, MAIN_REASSIGN,
+               batch=100, engine="pallas-interpret", device=dev)
+    out2 = io.StringIO()
+    write_partition_list(out2, opl)
+    if out2.getvalue() != out.getvalue():
+        fail("plan(engine='pallas-interpret') emitted a different plan")
+    log("pallas path: plan(engine='pallas-interpret') on the card emitted the "
+        "identical plan")
+    log(f"pallas path: the plan equals the -fused-engine=xla plan: "
+        f"{out.getvalue() == xla_plan}")
+    return launches
+
+
+def phase_scale_pallas(dev):
+    import torch
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    n_parts, n_brokers = SCALE_SHAPE
+    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=SEED + 1, weighted=True)
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    obs.begin_invocation()
+    ps.pallas_session.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opl = plan(pl, cfg, SCALE_MOVES, batch=128, engine="pallas", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
+    sess_s = obs.REGISTRY.counter_get("solver.session_seconds")
+    if not opl.partitions or iters <= 0:
+        fail("the pallas scale session planned nothing")
+    log(
+        f"scale pallas: plan {n_parts}x{n_brokers} batch=128 engine=pallas "
+        f"max_reassign={SCALE_MOVES}: {len(opl)} moves, {iters} session "
+        f"iterations, {wall} s wall ({sess_s} s in session launches and "
+        f"reads, {1e3 * sess_s / iters} ms per iteration), pallas_session "
+        f"launches {ps.pallas_session.launches}"
+    )
+
+
 def main() -> int:
     import torch
 
@@ -385,24 +669,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.ops import nvcc
 
-    # phase 1: build from the checkout's sources
+    # phase 1: build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    lib = sk.build(verbose=True)
-    log(f"build: {lib} in {time.perf_counter() - t0} s")
-    for line in sk.build_log.strip().splitlines():
-        log(f"  nvcc: {line}")
+    libs = nvcc.build(KERNEL_SOURCES, verbose=True)
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0} s")
+    for name, lib in zip(KERNEL_SOURCES, libs):
+        log(f"build: {name} -> {lib} in {nvcc.build_seconds.get(name)} s")
+        for line in nvcc.build_logs.get(name, "").strip().splitlines():
+            log(f"  nvcc {name}: {line}")
 
-    # phase 2: the kernel against its plain version at the main path's shapes
+    # phase 2: the scoring kernel against its plain version
     main_t = check_k1(capture_inputs(*MAIN_SHAPE, dev), "10k x 100")
     check_k1(capture_inputs(*SCALE_SHAPE, dev), "131072 x 256")
 
+    # phase 2b: the whole-session kernel against its plain version
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    b2_t = check_b2(*capture_session(*MAIN_SHAPE, MAIN_REASSIGN, SEED, dev),
+                    "10k x 100", 100, flush_buf.zero_)
+    check_b2(*capture_session(*SCALE_SHAPE, SCALE_MOVES, SEED + 1, dev),
+             "131072 x 256", 128, flush_buf.zero_)
+    del flush_buf
+
     # phase 3: the main path, counts zeroed just before and read just after
-    launches = phase_main_path(dev)
+    launches, xla_plan, cluster_path = phase_main_path(dev)
+    # phase 3b: the whole-session kernel's path, the same
+    b2_launches = phase_pallas_path(dev, xla_plan, cluster_path)
 
     # phase 4: scale
     phase_scale(dev)
+    phase_scale_pallas(dev)
 
     print(json.dumps({"kernels": [{
         "name": "shard_score",
@@ -415,6 +712,18 @@ def main() -> int:
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pallas_session",
+        "route": "cuda",
+        "source": "kafkabalancer_tpu_torch/csrc/pallas_session.cu",
+        "replaces": "kafkabalancer_tpu/solvers/pallas_session.py:83",
+        "launches": b2_launches,
+        "max_abs_err": b2_t["max_abs_err"],
+        "ms": b2_t["ms"],
+        "plain_ms": b2_t["plain_ms"],
+        "bound_ms": b2_t["bound_ms"],
+        "bound_by": b2_t["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

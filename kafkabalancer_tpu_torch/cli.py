@@ -273,7 +273,9 @@ def _run_impl(
             "fused-engine",
             "auto",
             "Fused mode: device engine (auto and xla run the session with "
-            "the hand-written scoring kernel; pallas is not ported yet)",
+            "the hand-written scoring kernel; pallas runs the whole session "
+            "as one kernel launch per chunk, pallas-interpret that kernel's "
+            "plain torch version)",
         )
         f_pprof_path = f.string(
             "pprof-path",
@@ -349,9 +351,6 @@ def _run_impl(
                     usage()
                     return 3
                 for what, item, given in (
-                    (f"-fused-engine={f_engine.value}",
-                     "B2 (whole-session kernel)",
-                     f_engine.value.startswith("pallas")),
                     ("-rebalance-leader with -fused",
                      "A5 (fused leader session)", f_rebalance_leader.value),
                     ("-anti-colocation with -fused",

@@ -17,7 +17,9 @@
 // (row, target) cell costs an IEEE division (overload_penalty divides by
 // avg, and exactness rules out a reciprocal) and ~30 instructions.
 //
-// Design:
+// Design (the tile body is score::stage_tile and score::score_staged in
+// score_tile.cuh, which the whole-session kernel pallas_session.cu runs
+// too):
 // - One block per tile of rows. The tile's member (and allowed) rows are
 //   one contiguous run of bytes; the block stages them, the tile's row
 //   columns and leaders, and the broker vectors into shared memory with
@@ -63,83 +65,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "score_tile.cuh"
+
 namespace {
 
-constexpr int kMaxTile = 128;  // partition rows per block, at most
-constexpr int kThreads = 256;  // threads per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaskBudget = 96 * 1024;  // staged mask bytes per block
+using score::kKeyCopies;
+using score::kThreads;
+
 constexpr int kBlocksPerSm = 8;  // tiles shrink until the grid has these
-constexpr unsigned long long kEmpty = ~0ull;  // no candidate yet
-// copies of the key array; block i offers to copy i % kKeyCopies, so the
-// atomics of concurrent blocks land on different L2 lines
-constexpr int kKeyCopies = 16;
-
-__device__ __forceinline__ float penalty(float load, float avg) {
-  // cost.overload_penalty: rel^2 if overloaded else rel^2 / 2
-  float rel = load / avg - 1.0f;
-  return rel * rel * (rel > 0.0f ? 1.0f : 0.5f);
-}
-
-__device__ __forceinline__ float colo_sub(float c, float lam) {
-  return c >= 2.0f ? lam : 0.0f;
-}
-
-__device__ __forceinline__ float colo_add(float c, float lam) {
-  return c >= 1.0f ? lam : 0.0f;
-}
-
-// (value, row) as one key whose unsigned order is the lexicographic order
-__device__ __forceinline__ unsigned long long pack(float v, int row) {
-  unsigned int u = __float_as_uint(v == 0.0f ? 0.0f : v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(u) << 32) |
-         static_cast<unsigned int>(row);
-}
-
-__device__ __forceinline__ void unpack(unsigned long long k, float& v,
-                                       int32_t& row) {
-  if (k == kEmpty) {
-    v = INFINITY;
-    row = 0;
-    return;
-  }
-  unsigned int u = static_cast<unsigned int>(k >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-  v = __uint_as_float(u);
-  row = static_cast<int32_t>(k & 0xffffffffu);
-}
-
-__device__ __forceinline__ void offer(unsigned long long* key, float v,
-                                      int row) {
-  if (v < INFINITY) atomicMin(key, pack(v, row));
-}
-
-// copy n bytes from device memory into shared memory, 16 at a time where
-// the source is aligned (dst is 16-byte aligned)
-__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* src,
-                                      int n) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int n16 = n / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < n16; i += kThreads) d4[i] = s4[i];
-    done = n16 * 16;
-  }
-  for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
-}
-
-__host__ __device__ __forceinline__ int round16(int n) {
-  return (n + 15) & ~15;
-}
 
 struct Args {
-  const int32_t* replicas;  // [P, R]
-  const float* cols;        // [P, 5]: w | ncur | ntgt | ncons | pvalid
-  const uint8_t* member;    // [P, B]
-  const uint8_t* allowed;   // [P, B] or null (every broker allowed)
-  const float* crows;       // [P, B] or null (no colocation terms)
+  score::Rows rows;
   const float* loads;       // [B]
   const float* F;           // [B]
   const uint8_t* bvalid;    // [B]
@@ -147,7 +83,7 @@ struct Args {
   const int32_t* s_i;       // [B2]
   const int32_t* t_i;       // [B2]
   const uint8_t* live;      // [B2]
-  int P, R, B, B2, tile;
+  int tile;
 };
 
 struct Outs {
@@ -155,39 +91,27 @@ struct Outs {
   int32_t *pf, *pl, *ppf, *ppl;
 };
 
-// Key columns, ncol = 2B + 2*B2: [0, B) follower target | [B, 2B) leader
-// target | [2B, 2B+B2) follower pair | [2B+B2, 2B+2*B2) leader pair.
-// `keys` holds kKeyCopies such arrays; `done` counts finished blocks; keys
-// and done start as all-ones bytes.
+// One tile per block (score::stage_tile, score::score_staged), then the
+// last block to finish folds the key copies into the outputs. `keys` holds
+// kKeyCopies key arrays; `done` counts finished blocks; keys and done start
+// as all-ones bytes.
 template <bool kAlw, bool kColo, bool kLead>
 __global__ void __launch_bounds__(kThreads)
 score_tiles(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
   extern __shared__ __align__(16) uint8_t s_dyn[];
-  __shared__ float s_cols[kMaxTile * 5];
-  __shared__ float s_astar[kMaxTile];  // follower source minimum A*
-  __shared__ float s_al[kMaxTile];     // leader source term A_l
-  __shared__ float s_w[kMaxTile];      // follower delta w
-  __shared__ float s_wl[kMaxTile];     // leader delta w*(ncur+ncons)
-  __shared__ int32_t s_lead[kMaxTile];
+  __shared__ score::TileShared ts;
   __shared__ bool s_last;
 
-  const int B = a.B, B2 = a.B2;
-  const int p0 = blockIdx.x * a.tile;
-  const int nrows = max(0, min(a.tile, a.P - p0));
-  const float avg = a.scal[0], minrep = a.scal[1], lam = a.scal[2];
-  const float inf = INFINITY;
-  const int ncol = 2 * B + 2 * B2;
+  const int B = a.rows.B, B2 = a.rows.B2;
+  const int ncol = score::key_columns(B, B2);
   unsigned long long* const all_keys = keys;
   keys += (blockIdx.x % kKeyCopies) * ncol;
-  unsigned long long* const keys_pf = keys + 2 * B;
-  unsigned long long* const keys_pl = keys + 2 * B + B2;
 
   // dynamic shared memory (dyn_smem_bytes): member rows | allowed rows |
   // head [B] | next [B2] | t_i [B2] | loads [B] | F [B] | bvalid [B]
-  const int mask_bytes = round16(a.tile * B);
+  const int mask_bytes = score::round16(a.tile * B);
   uint8_t* s_mem = s_dyn;
   uint8_t* s_alw = s_dyn + mask_bytes;
-  // a live pair column per hot broker, and the next one with the same
   int32_t* s_head =
       reinterpret_cast<int32_t*>(s_dyn + mask_bytes * (kAlw ? 2 : 1));
   int32_t* s_next = s_head + B;
@@ -196,14 +120,13 @@ score_tiles(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
   float* s_F = s_loads + B;
   uint8_t* s_bvalid = reinterpret_cast<uint8_t*>(s_F + B);
 
-  stage(s_mem, a.member + (size_t)p0 * B, nrows * B);
-  if (kAlw) stage(s_alw, a.allowed + (size_t)p0 * B, nrows * B);
-  for (int i = threadIdx.x; i < nrows * 5; i += kThreads) {
-    s_cols[i] = a.cols[(size_t)p0 * 5 + i];
-  }
-  for (int i = threadIdx.x; i < nrows; i += kThreads) {
-    s_lead[i] = a.replicas[(size_t)(p0 + i) * a.R];
-  }
+  // a local copy: a reference to the kernel parameter would move it to
+  // local memory
+  const score::Rows rows = a.rows;
+  const int p0 = blockIdx.x * a.tile;
+  const int nrows = max(0, min(a.tile, rows.P - p0));
+  const float avg = a.scal[0], minrep = a.scal[1], lam = a.scal[2];
+  score::stage_tile<kAlw, false>(rows, ts, s_mem, s_alw, p0, nrows);
   for (int b = threadIdx.x; b < B; b += kThreads) {
     s_head[b] = -1;
     s_loads[b] = a.loads[b];
@@ -221,106 +144,10 @@ score_tiles(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
   }
   __syncthreads();
 
-  // ---- per row (one warp each): the source minima A* and A_l, and every
-  // pair candidate, offered straight to its key -------------------------
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < nrows; r += kWarps) {
-    const int p = p0 + r;
-    const float* c = s_cols + r * 5;
-    const float w = c[0], ncur = c[1], ntgt = c[2], ncons = c[3];
-    const bool elig = (c[4] > 0.0f) && (ntgt >= minrep);
-    const int lead = s_lead[r];
-    const uint8_t* mrow = s_mem + r * B;
-    const uint8_t* arow = s_alw + r * B;
-    const float* crow = kColo ? a.crows + (size_t)p * B : nullptr;
-    // the pair target term at broker t, or +inf where t takes no move
-    auto pair_target = [&](int t, float delta) {
-      if (!s_bvalid[t] || mrow[t] || (kAlw && !arow[t])) return inf;
-      float C = penalty(s_loads[t] + delta, avg) - s_F[t];
-      if (kColo) C = C + colo_add(crow[t], lam);
-      return C;
-    };
-    float m = inf;
-    int has_nan = 0;
-    // the row's source cells (member brokers but the leader), a few per
-    // row: each lane marks its own in a bit mask, then every pass takes one
-    // per lane, so the warp runs the source work about once per row
-    for (int base = 0; elig && base < B; base += 32 * 32) {
-      unsigned int mine = 0;
-      for (int k = 0; k < 32 && base + 32 * k < B; ++k) {
-        const int b = base + 32 * k + lane;
-        if (b < B && mrow[b] && b != lead) mine |= 1u << k;
-      }
-      while (__any_sync(0xffffffffu, mine != 0)) {
-        if (mine == 0) continue;
-        const int b = base + 32 * (__ffs(mine) - 1) + lane;
-        mine &= mine - 1;
-        float A = penalty(s_loads[b] - w, avg) - s_F[b];
-        if (kColo) A = A - colo_sub(crow[b], lam);
-        if (isnan(A)) has_nan = 1;
-        else if (A < m) m = A;
-        for (int pc = s_head[b]; pc >= 0; pc = s_next[pc]) {
-          offer(&keys_pf[pc], A + pair_target(s_t[pc], w), p);
-        }
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, m, off);
-      m = o < m ? o : m;
-      has_nan |= __shfl_xor_sync(0xffffffffu, has_nan, off);
-    }
-    if (lane == 0) {
-      const float wl = w * (ncur + ncons);
-      float al = inf;
-      if (kLead && ncur >= 1.0f && elig && lead >= 0 && lead < B) {
-        al = penalty(s_loads[lead] - wl, avg) - s_F[lead];
-        if (kColo) al = al - colo_sub(crow[lead], lam);
-        for (int pc = s_head[lead]; pc >= 0; pc = s_next[pc]) {
-          offer(&keys_pl[pc], al + pair_target(s_t[pc], wl), p);
-        }
-      }
-      s_astar[r] = has_nan ? NAN : m;
-      s_al[r] = al;
-      s_w[r] = w;
-      s_wl[r] = wl;
-    }
-  }
-  __syncthreads();
-
-  // ---- per target broker (one thread each): every cell is computed and a
-  // predicate decides whether it counts, so the loop body has no branch;
-  // ascending rows with a strict < keep the lowest row of a tie ----------
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    if (!s_bvalid[b]) continue;
-    const float Lb = s_loads[b], Fb = s_F[b];
-    float vf = inf, vl = inf;
-    int rf = 0, rl = 0;
-#pragma unroll 4
-    for (int r = 0; r < nrows; ++r) {
-      const int cell = r * B + b;
-      const bool ok = !s_mem[cell] && (!kAlw || s_alw[cell]);
-      const float add =
-          kColo ? colo_add(a.crows[(size_t)p0 * B + cell], lam) : 0.0f;
-      const float as = s_astar[r];
-      float C = penalty(Lb + s_w[r], avg) - Fb;
-      if (kColo) C = C + add;
-      const float v = as + C;
-      const bool take = ok && isfinite(as) && v < vf;
-      vf = take ? v : vf;
-      rf = take ? p0 + r : rf;
-      if (kLead) {
-        const float al = s_al[r];
-        float Cl = penalty(Lb + s_wl[r], avg) - Fb;
-        if (kColo) Cl = Cl + add;
-        const float vl_r = al + Cl;
-        const bool take_l = ok && isfinite(al) && vl_r < vl;
-        vl = take_l ? vl_r : vl;
-        rl = take_l ? p0 + r : rl;
-      }
-    }
-    offer(&keys[b], vf, rf);
-    if (kLead) offer(&keys[B + b], vl, rl);
-  }
+  const score::Table tb{s_loads, s_F, s_bvalid, s_head, s_next, s_t,
+                        avg, minrep, lam};
+  score::score_staged<kAlw, kColo, kLead>(rows, tb, ts, s_mem, s_alw, p0,
+                                          nrows, keys);
 
   // ---- the last block to finish unpacks the keys --------------------------
   __threadfence();  // this block's offers before its count
@@ -339,7 +166,7 @@ score_tiles(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
     }
     float v;
     int32_t r;
-    unpack(k, v, r);
+    score::unpack(k, v, r);
     if (j < B) {
       o.vf[j] = v; o.pf[j] = r;
     } else if (j < 2 * B) {
@@ -352,20 +179,9 @@ score_tiles(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
   }
 }
 
-// rows per tile: the largest power of two up to kMaxTile that still gives
-// every SM kBlocksPerSm blocks (down to 16 rows), within the mask budget
-int tile_rows(int P, int B, bool has_allowed, int n_sm) {
-  int tile = kMaxTile;
-  while (tile > 16 && (P + tile - 1) / tile < kBlocksPerSm * n_sm) tile /= 2;
-  const int per_row = B * (has_allowed ? 2 : 1);
-  while (tile > 1 && tile * per_row > kMaskBudget) tile /= 2;
-  return tile;
-}
-
 // score_tiles' dynamic shared memory
 int dyn_smem_bytes(int tile, int B, int B2, bool has_allowed) {
-  return round16(tile * B) * (has_allowed ? 2 : 1) + 4 * (B + 2 * B2) +
-         9 * B;
+  return score::mask_bytes(tile, B, has_allowed) + 4 * (B + 2 * B2) + 9 * B;
 }
 
 template <bool kAlw, bool kColo, bool kLead>
@@ -378,7 +194,8 @@ cudaError_t launch_tiles(const Args& a, unsigned long long* keys,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int blocks = a.P > 0 ? (a.P + a.tile - 1) / a.tile : 1;
+  const int P = a.rows.P;
+  const int blocks = P > 0 ? (P + a.tile - 1) / a.tile : 1;
   kernel<<<blocks, kThreads, smem, st>>>(a, keys, done, o);
   return cudaGetLastError();
 }
@@ -401,7 +218,7 @@ extern "C" {
 // 64-bit words of scratch a launch needs: the key copies, then the
 // finished-block count.
 long long shard_score_scratch_words(int B, int B2) {
-  return static_cast<long long>(kKeyCopies) * (2 * B + 2 * B2) + 1;
+  return static_cast<long long>(kKeyCopies) * score::key_columns(B, B2) + 1;
 }
 
 // Launch the pass on `stream` with shard_score_scratch_words(B, B2) words
@@ -428,10 +245,11 @@ int shard_score_launch(
                                     dev)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int tile = tile_rows(P, B, allowed != nullptr, n_sm);
+  const int tile =
+      score::tile_rows(P, B, allowed != nullptr, n_sm, kBlocksPerSm);
   const int smem = dyn_smem_bytes(tile, B, B2, allowed != nullptr);
-  Args a{replicas, cols, member, allowed, crows, loads, F, bvalid, scal,
-         s_i, t_i, live, P, R, B, B2, tile};
+  Args a{{replicas, cols, member, allowed, crows, P, R, B, B2},
+         loads, F, bvalid, scal, s_i, t_i, live, tile};
   Outs o{vf, vl, vpf, vpl, pf, pl, ppf, ppl};
   const int variant = (allowed ? 4 : 0) | (crows ? 2 : 0) |
                       (allow_leader ? 1 : 0);

@@ -19,8 +19,9 @@ from typing import Any, List, Optional, Tuple
 
 # fused-session engines (solvers/scan.py plan()); lives here so the CLI
 # can validate the flag without importing torch. "auto" and "xla" run the
-# torch session with the hand-written scoring kernel; the "pallas" names
-# select the whole-session kernel, which is not ported yet.
+# torch session with the hand-written scoring kernel; "pallas" runs the
+# whole-session kernel (solvers/pallas_session.py) and "pallas-interpret"
+# its plain torch version.
 ENGINES: Tuple[str, ...] = ("auto", "xla", "pallas", "pallas-interpret")
 
 

@@ -13,43 +13,21 @@ does around its Pallas kernel.
 :func:`shard_score` dispatches on the tensors' device: a CPU tensor runs
 :func:`shard_score_plain`, a CUDA tensor launches the kernel or raises.
 There is no fallback between the two. The kernel is built with ``nvcc``
-into a shared library with a plain C interface at first use, cached in
-``kafkabalancer_tpu_torch/_build/`` by source digest, and loaded with
-``ctypes``.
+into a shared library with a plain C interface at first use
+(:mod:`kafkabalancer_tpu_torch.ops.nvcc`) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from typing import Any, Optional, Tuple
 
 import torch
 
+from kafkabalancer_tpu_torch.ops import nvcc
 from kafkabalancer_tpu_torch.ops.cost import argmin_rows, colo_terms, overload_penalty
 
 Tensor = torch.Tensor
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "shard_score.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # the plain version rounds after every multiply and add; contraction
-    # into FMAs would change the kernel's bits
-    "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-# nvcc's output (resource usage with -Xptxas -v) of the last build
-build_log = ""
 
 
 def pack_cols(
@@ -159,63 +137,22 @@ def shard_score_plain(
     return vf, pf, vl, pl_, vpf, ppf, vpl, ppl
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "shard_score kernel cannot be built"
-    )
+SOURCE = "shard_score.cu"
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/shard_score.cu`` unless a library built from the
-    same source and flags is already in ``_build/``; returns its path.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills)
-    to a fresh build's log (:data:`build_log`)."""
-    global build_log
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = os.path.join(BUILD_DIR, f"libshard_score-{digest[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{build_log}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    P = ctypes.c_void_p
+    I = ctypes.c_int
+    lib.shard_score_launch.argtypes = [P] * 12 + [I] * 5 + [P] * 10
+    lib.shard_score_launch.restype = I
+    lib.shard_score_scratch_words.argtypes = [I, I]
+    lib.shard_score_scratch_words.restype = ctypes.c_longlong
+    lib.shard_score_error_string.argtypes = [I]
+    lib.shard_score_error_string.restype = ctypes.c_char_p
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            P = ctypes.c_void_p
-            I = ctypes.c_int
-            lib.shard_score_launch.argtypes = [P] * 12 + [I] * 5 + [P] * 10
-            lib.shard_score_launch.restype = I
-            lib.shard_score_scratch_words.argtypes = [I, I]
-            lib.shard_score_scratch_words.restype = ctypes.c_longlong
-            lib.shard_score_error_string.argtypes = [I]
-            lib.shard_score_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    return nvcc.load(SOURCE, _bind)
 
 
 def _check(t: Tensor, name: str, dtype: Any, shape: Tuple[int, ...]) -> None:

@@ -18,7 +18,10 @@ exits once no candidate clears the ``min_unbalance`` threshold.
 
 The loop is a Python loop over torch operations with one host read per
 iteration (the accepted count). The session's state lives on the device
-and is updated in place.
+and is updated in place. ``plan(engine="pallas")`` runs the whole session
+as one kernel launch per chunk instead (``solvers/pallas_session.py``),
+sharing this module's candidate pool (:func:`batch_pool`) and acceptance
+(:func:`prefix_accept`) through its plain version.
 
 ``plan`` wraps the session like the reference's: host repairs first,
 then chunked sessions that re-encode the live assignment between chunks,
@@ -37,7 +40,7 @@ from kafkabalancer_tpu_torch import obs
 from kafkabalancer_tpu_torch.balancer.pipeline import _COMMON_HEAD
 from kafkabalancer_tpu_torch.balancer.steps import BalanceError
 from kafkabalancer_tpu_torch.models import Partition, PartitionList, RebalanceConfig
-from kafkabalancer_tpu_torch.models.config import ENGINES, default_dtype
+from kafkabalancer_tpu_torch.models.config import ENGINES, default_dtype, kernel_dtype
 from kafkabalancer_tpu_torch.models.partition import empty_partition_list
 from kafkabalancer_tpu_torch.obs import convergence
 from kafkabalancer_tpu_torch.ops.cost import (
@@ -171,6 +174,90 @@ def prefix_accept(
     return ok, pos, ok.sum()
 
 
+def batch_pool(
+    loads: Tensor,
+    bvalid: Tensor,
+    nb: Tensor,
+    rep: Tensor,
+    mem: Tensor,
+    allowed: Optional[Tensor],
+    cols: Tensor,
+    minrep: Tensor,
+    score: Callable[..., Tuple[Tensor, ...]],
+    *,
+    allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """One batched iteration's candidate pool, before acceptance.
+
+    Scores the current state with ``score`` (``shard_score`` or its plain
+    version), merges the leader winners (strict <, follower wins ties),
+    recovers the follower slots and finishes the pair winners. Returns
+    ``(vals, p, slot, s_, t, w_k, avg, su)`` over the ``K = B + B//2``
+    pool — per-target winners, whose rank-0 candidate keeps the exact
+    termination criterion, then the hot/cold pair winners, which supply
+    distinct partitions, sources and targets — with ``vals`` absolute
+    (su-based, +inf for dead candidates) and ``w_k`` each candidate's
+    applied load delta (the leader premium travels with slot 0,
+    utils.go:96-101). Shared by :func:`session` and the whole-session
+    kernel's plain version (``solvers/pallas_session.py``).
+    """
+    dtype = loads.dtype
+    dev = loads.device
+    R = rep.shape[1]
+    B = loads.shape[0]
+    inf = float("inf")
+    weights = cols[:, 0]
+    nrep_cur = cols[:, 1]
+    ncons = cols[:, 3]
+    avg = ordered_sum(torch.where(bvalid, loads, torch.zeros_like(loads))) / nb
+    F = torch.where(
+        bvalid, overload_penalty(loads, avg), torch.zeros_like(loads)
+    )
+    su = ordered_sum(F)
+    s_i, t_i, live = pair_frame(loads, bvalid)
+    vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
+        rep, cols, mem, allowed, loads, F, bvalid,
+        torch.stack([avg, minrep, torch.zeros_like(minrep)]),
+        s_i.to(torch.int32), t_i.to(torch.int32), live,
+        allow_leader=allow_leader,
+    )
+    pf = pf.long()
+    # follower slot recovery for the [B] winners only, ascending-slot
+    # ties (cost.factored_target_best's slot_of)
+    slot_iota = torch.arange(R, device=dev)[None, :]
+    rowsA = (
+        overload_penalty(loads[None, :] - weights[pf][:, None], avg)
+        - F[None, :]
+    )  # [B, B]
+    slot_vals = rowsA.gather(1, rep[pf].clamp(min=0).long())
+    valids = (slot_iota >= 1) & (slot_iota < nrep_cur[pf][:, None])
+    slot_f = torch.where(
+        valids, slot_vals, torch.full_like(slot_vals, inf)
+    ).argmin(1)
+    if allow_leader:
+        lead_better = vl < vf  # strict: follower wins ties
+        vals_t = torch.where(lead_better, vl, vf)
+        p_t = torch.where(lead_better, pl_.long(), pf)
+        slot_t = torch.where(lead_better, torch.zeros_like(slot_f), slot_f)
+    else:
+        vals_t, p_t, slot_t = vf, pf, slot_f
+    vals_p, p_p, slot_p = pair_finish(
+        rep, nrep_cur, s_i, live, vpf, ppf,
+        vpl if allow_leader else None, ppl if allow_leader else None,
+        allow_leader=allow_leader,
+    )
+
+    vals = torch.cat([su + vals_t, su + vals_p])
+    p = torch.cat([p_t, p_p])
+    slot = torch.cat([slot_t, slot_p])
+    s_ = torch.cat([rep[p_t, slot_t].long(), s_i])
+    t = torch.cat([torch.arange(B, device=dev), t_i])
+    w_k = torch.where(
+        slot == 0, weights[p] * (nrep_cur[p].to(dtype) + ncons[p]), weights[p]
+    )
+    return vals, p, slot, s_, t, w_k, avg, su
+
+
 def session(
     loads: Tensor,
     replicas: Tensor,
@@ -236,7 +323,6 @@ def session(
     log = torch.full((4, max_moves + 1), -1, dtype=torch.long, device=dev)
 
     slot_iota = torch.arange(R, device=dev)[None, :]
-    iota_b = torch.arange(B, device=dev)
 
     def table() -> Tuple[Tensor, Tensor]:
         bvalid = (always_valid | (bcount > 0)) & universe_valid
@@ -252,55 +338,13 @@ def session(
 
     cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
     minrep = scalar(min_replicas, dtype, dev)
-    zero = torch.zeros_like(minrep)
 
     def step_batch(n: int) -> int:
         bvalid, nb = table()
-        avg = ordered_sum(torch.where(bvalid, loads, torch.zeros_like(loads))) / nb
-        F = torch.where(
-            bvalid, overload_penalty(loads, avg), torch.zeros_like(loads)
-        )
-        su = ordered_sum(F)
-        s_i, t_i, live = pair_frame(loads, bvalid)
-        vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
-            rep, cols, mem, allowed, loads, F, bvalid,
-            torch.stack([avg, minrep, zero]), s_i.to(torch.int32),
-            t_i.to(torch.int32), live, allow_leader=allow_leader,
-        )
-        pf = pf.long()
-        # follower slot recovery for the [B] winners only, ascending-slot
-        # ties (cost.factored_target_best's slot_of)
-        rowsA = (
-            overload_penalty(loads[None, :] - weights[pf][:, None], avg)
-            - F[None, :]
-        )  # [B, B]
-        slot_vals = rowsA.gather(1, rep[pf].clamp(min=0).long())
-        valids = (slot_iota >= 1) & (slot_iota < nrep_cur[pf][:, None])
-        slot_f = torch.where(
-            valids, slot_vals, torch.full_like(slot_vals, inf)
-        ).argmin(1)
-        if allow_leader:
-            lead_better = vl < vf  # strict: follower wins ties
-            vals_t = torch.where(lead_better, vl, vf)
-            p_t = torch.where(lead_better, pl_.long(), pf)
-            slot_t = torch.where(lead_better, torch.zeros_like(slot_f), slot_f)
-        else:
-            vals_t, p_t, slot_t = vf, pf, slot_f
-        vals_p, p_p, slot_p = pair_finish(
-            rep, nrep_cur, s_i, live, vpf, ppf,
-            vpl if allow_leader else None, ppl if allow_leader else None,
+        vals, p, slot, s_, t, w_k, avg, su = batch_pool(
+            loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
             allow_leader=allow_leader,
         )
-
-        # the union pool, K = B + B//2 candidates: per-target winners keep
-        # the exact termination criterion, pair winners supply distinct
-        # partitions, sources and targets
-        vals = torch.cat([su + vals_t, su + vals_p])
-        p = torch.cat([p_t, p_p])
-        slot = torch.cat([slot_t, slot_p])
-        s_ = torch.cat([rep[p_t, slot_t].long(), s_i])
-        t = torch.cat([iota_b, t_i])
-        w_k = applied_delta(p, slot)
         ok, pos, cnt = prefix_accept(
             vals, p, s_, t, w_k, loads, avg, su, mu, cg, n, batch, budget,
             max_moves,
@@ -402,25 +446,50 @@ def _run_chunk(
     batch: int,
     device: torch.device,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]],
+    engine: str = "xla",
 ) -> "np.ndarray":
     """One session over ``dp`` on ``device``; returns the packed move log
-    ``[move_p | move_slot | move_tgt | n]`` as one host array."""
+    ``[move_p | move_slot | move_tgt | n]`` as one host array. ``engine``
+    ``"xla"`` runs :func:`session`; ``"pallas"`` the whole-session kernel
+    (``solvers/pallas_session.py``, its plain version on CPU tensors);
+    ``"pallas-interpret"`` that kernel's plain version on ``device``."""
     all_allowed = all_allowed_of(dp)
     d = to_device(dp, device, dtype, all_allowed=all_allowed)
     B = dp.bvalid.shape[0]
     loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons, B)
     max_moves = next_bucket(chunk, 128)
+    always = torch.from_numpy(_cfg_broker_mask(dp, cfg)).to(device)
     obs.metrics.count("solver.chunks")
-    with obs.span("solver.dispatch_chunk", max_moves=max_moves, batch=batch):
-        _rep, _loads, n, mp, mslot, _msrc, mtgt, _su = session(
-            loads, d.replicas, d.member, d.allowed, d.weights, d.nrep_cur,
-            d.nrep_tgt, d.ncons, d.pvalid,
-            torch.from_numpy(_cfg_broker_mask(dp, cfg)).to(device), d.bvalid,
-            cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
-            max_moves=max_moves,
-            allow_leader=cfg.allow_leader_rebalancing, batch=max(1, batch),
-            scorer=scorer,
-        )
+    with obs.span(
+        "solver.dispatch_chunk", max_moves=max_moves, batch=batch, engine=engine
+    ):
+        if engine == "xla":
+            _rep, _loads, n, mp, mslot, _msrc, mtgt, _su = session(
+                loads, d.replicas, d.member, d.allowed, d.weights, d.nrep_cur,
+                d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid,
+                cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+                max_moves=max_moves,
+                allow_leader=cfg.allow_leader_rebalancing, batch=max(1, batch),
+                scorer=scorer,
+            )
+        else:
+            from kafkabalancer_tpu_torch.solvers.pallas_session import (
+                pallas_session,
+                pallas_session_plain,
+            )
+
+            run = (
+                pallas_session_plain if engine == "pallas-interpret"
+                else pallas_session
+            )
+            _rep, _loads, n, mp, mslot, _msrc, mtgt = run(
+                loads, d.replicas, None, d.allowed, d.weights, d.nrep_cur,
+                d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid,
+                cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+                max(1, batch), DEFAULT_CHURN_GATE, max_moves=max_moves,
+                allow_leader=cfg.allow_leader_rebalancing,
+                all_allowed=all_allowed,
+            )
         n_t = torch.tensor([n], dtype=torch.int32, device=mp.device)
         return torch.cat([mp, mslot, mtgt, n_t]).cpu().numpy()
 
@@ -547,9 +616,11 @@ def plan(
     ``device`` defaults to CUDA (and raises without a card); ``dtype``
     defaults per device (``models.config.default_dtype``: float32 on
     CUDA, float64 on the CPU). ``engine`` takes the reference's names:
-    ``auto``/``xla`` run this session; the whole-session kernel
-    (``pallas``) is not ported yet. ``scorer`` is passed to
-    :func:`session`.
+    ``auto``/``xla`` run :func:`session`; ``pallas`` runs the
+    whole-session kernel (``solvers/pallas_session.py``: float32 only,
+    the pooled batched selection even at ``batch=1``, one launch per
+    chunk), and ``pallas-interpret`` that kernel's plain version on
+    ``device``. ``scorer`` is passed to :func:`session`.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
@@ -557,10 +628,6 @@ def plan(
     opl = empty_partition_list()
     if max_reassign <= 0:
         return opl
-    if engine != "xla":
-        raise BalanceError(
-            f"engine {engine!r} (the whole-session kernel) is not yet ported"
-        )
     if cfg.rebalance_leaders:
         raise BalanceError(
             "the fused leader session (rebalance_leaders) is not yet ported"
@@ -573,7 +640,10 @@ def plan(
     with obs.span("settle"):
         repaired, budget = _settle_head(pl, cfg, max_reassign)
     opl.append(*repaired)
-    if dtype is None:
+    use_kernel = engine in ("pallas", "pallas-interpret")
+    if use_kernel:
+        dtype = kernel_dtype()
+    elif dtype is None:
         dtype = default_dtype(device)
 
     # sessions chunk at ``chunk_moves`` and re-enter with the mutated
@@ -583,10 +653,22 @@ def plan(
         with obs.span("tensorize"):
             dp = tensorize(pl, cfg)
         chunk = min(remaining, chunk_moves)
-        packed = _run_chunk(dp, cfg, chunk, dtype, batch, device, scorer)
-        # the batched mode is not the batch=1 parity trajectory, so its
-        # superseded writes elide
-        n = _decode_packed(packed, dp, opl, drop_superseded=batch > 1)
+        try:
+            packed = _run_chunk(
+                dp, cfg, chunk, dtype, batch, device, scorer, engine
+            )
+        except (RuntimeError, ValueError) as exc:
+            if not use_kernel:
+                raise
+            # a kernel that does not build, launch or take these shapes is
+            # a planning failure (CLI exit 3); nothing falls back
+            raise BalanceError(f"{engine} engine failed ({exc})") from exc
+        # neither the batched mode nor the whole-session kernel (pooled
+        # selection at any batch) is the batch=1 parity trajectory, so
+        # their superseded writes elide
+        n = _decode_packed(
+            packed, dp, opl, drop_superseded=batch > 1 or use_kernel
+        )
         remaining -= n
         if n < chunk:
             break

@@ -5,7 +5,9 @@ the same argument vectors and inputs — the golden inputs of
 tests/test_cli.py and the 16+ table cases of tests/test_balancer.py — and
 must return the same exit code and write the same stdout, for the greedy
 pipeline and for ``-fused -fused-batch=4`` (the port on the CPU via
-``device="cpu"``, the reference at float64 as tests/conftest.py sets it).
+``device="cpu"``, the reference at float64 as tests/conftest.py sets it),
+and with ``-fused-engine=pallas`` against the reference's
+``-fused-engine=pallas-interpret`` (both at float32).
 
 Also pinned here: the port imports neither jax nor the JAX package
 (subprocess check), ``-fused`` without a GPU exits 3, and flags whose
@@ -119,12 +121,36 @@ def test_balancer_table_cases(idx, fused, extra):
     assert got == ref
 
 
+@pytest.mark.parametrize("idx", range(len(GOLDEN)))
+def test_golden_cli_inputs_whole_session_kernel(idx):
+    """``-fused -fused-engine=pallas`` (on the CPU, the kernel's plain
+    version) against the reference's ``-fused-engine=pallas-interpret``
+    (its Pallas kernel in interpret mode): same rc, same stdout bytes."""
+    argv, stdin = GOLDEN[idx]
+    ref = jrun_out(argv + FUSED + ["-fused-engine=pallas-interpret"], stdin)
+    got = trun_out(argv + FUSED + ["-fused-engine=pallas"], stdin)
+    assert got == ref
+
+
+def jrun_out(argv, stdin):
+    o, e = io.StringIO(), io.StringIO()
+    return jrun(io.StringIO(stdin), o, e, ["kafkabalancer"] + argv), o.getvalue()
+
+
+def trun_out(argv, stdin):
+    o, e = io.StringIO(), io.StringIO()
+    rc = trun(io.StringIO(stdin), o, e, ["kafkabalancer"] + argv, device="cpu")
+    return rc, o.getvalue()
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import kafkabalancer_tpu_torch, kafkabalancer_tpu_torch.cli\n"
         "import kafkabalancer_tpu_torch.solvers.scan\n"
         "import kafkabalancer_tpu_torch.parallel.shard_kernel\n"
+        "import kafkabalancer_tpu_torch.solvers.pallas_session\n"
+        "import kafkabalancer_tpu_torch.ops.nvcc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -174,7 +200,6 @@ def test_unported_flags_exit_3(flag, item):
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (["-fused-engine=pallas"], "B2"),
         (["-rebalance-leader"], "A5"),
         (["-anti-colocation=0.5"], "A4"),
     ],

@@ -6,10 +6,12 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py configures JAX for the reference's
-tests.) The CUDA kernel is held against its plain torch version on the
+tests.) Each CUDA kernel is held against its plain torch version on the
 inputs the session gives it (captured from a real session call) with
-tolerance zero: all eight outputs equal under ``==``. The whole session
-with the kernel must emit the same plan as with the plain scorer.
+tolerance zero: the scoring kernel's eight outputs and the whole-session
+kernel's seven, equal under ``==``. The torch session with the scoring
+kernel must emit the same plan as with the plain scorer, and
+``plan(engine="pallas")`` the same plan as ``engine="pallas-interpret"``.
 """
 
 import pytest
@@ -17,6 +19,7 @@ import torch
 
 from kafkabalancer_tpu_torch.models import default_rebalance_config
 from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+from kafkabalancer_tpu_torch.solvers import pallas_session as ps
 from kafkabalancer_tpu_torch.solvers import scan
 from kafkabalancer_tpu_torch.utils.synth import synth_cluster
 from torch_helpers import cuda_device  # noqa: F401
@@ -118,3 +121,109 @@ def test_kernel_session_matches_plain_session(cuda_device, allow_leader):
     ma = [(p.topic, p.partition, tuple(p.replicas)) for p in a.partitions]
     mb = [(p.topic, p.partition, tuple(p.replicas)) for p in b.partitions]
     assert ma and ma == mb
+
+
+class Captured(Exception):
+    """Stops a plan once its first session call is seen."""
+
+
+def captured_session(n_parts, n_brokers, device, monkeypatch, seed=3):
+    """The whole-session kernel's arguments for a plan's first chunk,
+    captured from ``plan(engine="pallas")``."""
+    seen = []
+
+    def capture(*args, **kw):
+        seen.append((list(args), dict(kw)))
+        raise Captured()
+
+    monkeypatch.setattr(ps, "pallas_session", capture)
+    with pytest.raises(Captured):
+        scan.plan(
+            synth_cluster(n_parts, n_brokers, rf=3, seed=seed), cfg(), 1,
+            batch=16, engine="pallas", device=device,
+        )
+    monkeypatch.undo()
+    return seen[0]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("restricted", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("shape", [(300, 20), (3000, 60)])
+def test_session_kernel_matches_plain(
+    cuda_device, monkeypatch, shape, allow_leader, restricted, batch
+):
+    args, kw = captured_session(*shape, cuda_device, monkeypatch)
+    args[13] = 1 << 20  # the whole session: budget past convergence
+    args[14] = batch
+    kw.update(max_moves=8192, allow_leader=allow_leader)
+    if restricted:
+        P, B = args[1].shape[0], args[0].shape[0]
+        g = torch.Generator(device=cuda_device).manual_seed(7)
+        args[3] = torch.rand((P, B), generator=g, device=cuda_device) < 0.6
+        kw["all_allowed"] = False
+    ps.pallas_session.launches = 0
+    got = ps.pallas_session(*args, **kw)
+    again = ps.pallas_session(*args, **kw)
+    assert ps.pallas_session.launches == 2
+    ref = ps.pallas_session_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[2] > 0 and got[2] == again[2] == ref[2]
+    for a, b, c in zip(got, again, ref):
+        if torch.is_tensor(a):
+            assert a.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+def test_session_kernel_matches_plain_at_the_widest_bucket(
+    cuda_device, monkeypatch, restricted
+):
+    """700 brokers: the kernel's largest broker bucket (B = 1024, a pool
+    of K = 1536 candidates), where the tiles shrink to fit shared memory
+    and the prefix sums take ordered_sum's deepest level."""
+    args, kw = captured_session(2000, 700, cuda_device, monkeypatch)
+    assert args[0].shape[0] == 1024
+    args[13] = 1 << 20
+    args[14] = 64
+    kw.update(max_moves=8192, allow_leader=True)
+    if restricted:
+        P, B = args[1].shape[0], args[0].shape[0]
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        args[3] = torch.rand((P, B), generator=g, device=cuda_device) < 0.6
+        kw["all_allowed"] = False
+    got = ps.pallas_session(*args, **kw)
+    ref = ps.pallas_session_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[2] > 0 and got[2] == ref[2]
+    for a, c in zip(got, ref):
+        if torch.is_tensor(a):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_kernel_plan_matches_interpret_plan(cuda_device, allow_leader):
+    ps.pallas_session.launches = 0
+    a = scan.plan(
+        synth_cluster(2000, 40, seed=9), cfg(allow_leader), 5000, batch=32,
+        engine="pallas", device=cuda_device,
+    )
+    assert ps.pallas_session.launches > 0
+    b = scan.plan(
+        synth_cluster(2000, 40, seed=9), cfg(allow_leader), 5000, batch=32,
+        engine="pallas-interpret", device=cuda_device,
+    )
+    ma = [(p.topic, p.partition, tuple(p.replicas)) for p in a.partitions]
+    mb = [(p.topic, p.partition, tuple(p.replicas)) for p in b.partitions]
+    assert ma and ma == mb
+
+
+def test_session_kernel_rejects_what_it_does_not_take(cuda_device, monkeypatch):
+    args, kw = captured_session(300, 20, cuda_device, monkeypatch)
+    bad = list(args)
+    bad[4] = args[4].cpu()  # weights on another device
+    with pytest.raises(ValueError):
+        ps.pallas_session(*bad, **kw)
+    bad = list(args)
+    bad[14] = 0  # batch
+    with pytest.raises(ValueError):
+        ps.pallas_session(*bad, **kw)

@@ -180,8 +180,6 @@ def test_unported_engines_and_modes_raise():
     from kafkabalancer_tpu_torch.balancer import BalanceError
 
     _, tc = cfgs()
-    with pytest.raises(BalanceError, match="not yet ported"):
-        tscan.plan(tsynth(50, 6), tc, 10, batch=4, engine="pallas", device="cpu")
     tc.rebalance_leaders = True
     with pytest.raises(BalanceError, match="not yet ported"):
         tscan.plan(tsynth(50, 6), tc, 10, batch=4, device="cpu")
