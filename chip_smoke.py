@@ -24,6 +24,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    under ``==``, and two launches give identical bits. Device time per
    launch, iterations, ms per iteration, the torch session's ms per
    iteration on the same inputs, the plain version's time and the bound.
+   Then one launch with phase stamps (its outputs equal to an unstamped
+   launch's): each phase's share of an iteration, the median iteration in
+   cycles and in us at the SM clock. Last, an unweighted cluster (ties
+   decided by index) at the 10k x 100 bucket, batch 100, leaders off and
+   on, equal to the plain version.
 3. The main path through the CLI: a 10k-partition x 100-broker synthetic
    cluster planned by ``kafkabalancer_tpu_torch.cli.run`` with
    ``-fused -fused-batch=100``; rc 0, a parseable plan, the scoring
@@ -277,9 +282,10 @@ class _Captured(Exception):
     """Stops a plan once its first chunk's session arguments are seen."""
 
 
-def capture_session(n_parts, n_brokers, budget, seed, dev):
+def capture_session(n_parts, n_brokers, budget, seed, dev, weighted=True):
     """The whole-session kernel's arguments at the first chunk of
-    ``plan(engine="pallas")`` on a synthetic cluster."""
+    ``plan(engine="pallas")`` on a synthetic cluster (``weighted=False``:
+    every partition weighs the same, so candidate values tie often)."""
     from kafkabalancer_tpu_torch.models import default_rebalance_config
     from kafkabalancer_tpu_torch.solvers import pallas_session as ps
     from kafkabalancer_tpu_torch.solvers.scan import plan
@@ -294,7 +300,7 @@ def capture_session(n_parts, n_brokers, budget, seed, dev):
 
     cfg = default_rebalance_config()
     cfg.min_unbalance = 1e-7
-    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=seed, weighted=True)
+    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=seed, weighted=weighted)
     ps.pallas_session = capture
     try:
         plan(pl, cfg, budget, batch=100, engine="pallas", device=dev)
@@ -342,6 +348,84 @@ def b2_bound_ms(P, R, B, has_allowed, iters, n):
     the loads and broker counts), over the HBM rate."""
     by = iters * k1_session_bytes(P, R, B, has_allowed) + n * 22 + iters * 8 * B
     return 1e3 * by / PEAK_BYTES_PER_S, by
+
+
+def sm_clock_mhz():
+    """The SM clock nvidia-smi reads now, in MHz, or None."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        return float(smi.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        return None
+
+
+def b2_split(a, k, label):
+    """Phase 2b's split of an iteration: one launch of the main-path
+    variant with phase stamps, whose seven outputs must equal an unstamped
+    launch's. Prints each phase's share of the iterations' cycles, its
+    median and its sum over iterations (iterations 1.. — the first has no
+    start stamp), and the median iteration in cycles and in us at the SM
+    clock nvidia-smi reads right after the launch; returns the shares."""
+    import torch
+
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    largs = (*a[11:16], k["max_moves"], False)
+    ref_st = b2_state(a, k)
+    ref_log, ref_counts = ps.launch(ref_st, *largs)
+    st = b2_state(a, k)
+    stamps = torch.zeros(
+        (ps.stamp_rows(a[13], k["max_moves"]), len(ps.STAMP_PHASES)),
+        dtype=torch.int64, device=st.device,
+    )
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    log_, counts = ps.launch(st, *largs, stamps=stamps)
+    ev1.record()
+    torch.cuda.synchronize()
+    mhz = sm_clock_mhz()
+    ms = ev0.elapsed_time(ev1)
+    n, iters = int(counts[0]), int(counts[1])
+    for name, x, y in zip(
+        B2_NAMES,
+        (st.replicas, st.loads, counts[0], *log_),
+        (ref_st.replicas, ref_st.loads, ref_counts[0], *ref_log),
+    ):
+        if not torch.equal(x, y):
+            fail(f"pallas_session {label}: the stamped launch's {name} differs "
+                 f"from the unstamped launch's")
+    if iters < 2:
+        fail(f"pallas_session {label}: {iters} iterations, no split")
+    s = stamps[:iters].cpu()
+    d = torch.empty((iters - 1, len(ps.STAMP_PHASES)), dtype=torch.int64)
+    d[:, 0] = s[1:, 0] - s[:-1, -1]
+    d[:, 1:] = s[1:, 1:] - s[1:, :-1]
+    if bool((d < 0).any()):
+        fail(f"pallas_session {label}: phase stamps out of order")
+    total = int(d.sum())
+    per_it = d.sum(1)
+    med_it = float(per_it.double().median())
+    shares = {}
+    for i, name in enumerate(ps.STAMP_PHASES):
+        col = d[:, i]
+        shares[name] = int(col.sum()) / total
+        log(f"  split {label} {name}: {100 * shares[name]:.2f} % of the cycles, "
+            f"median {float(col.double().median())} cycles, sum {int(col.sum())} "
+            f"cycles over {iters - 1} iterations")
+    span = int(s[-1, -1] - s[0, 0])
+    log(
+        f"pallas_session {label} split (stamped main-path launch, {n} moves in "
+        f"{iters} iterations, {ms} ms by events): median iteration {med_it} "
+        f"cycles = {med_it / mhz if mhz else 'n/a'} us at the SM clock "
+        f"nvidia-smi reads, {mhz} MHz; the stamps span {span} cycles, "
+        f"{span / (1e3 * ms)} MHz against the event time; scoring "
+        f"(table + own scoring + barrier) {100 * (shares['table'] + shares['own_scoring'] + shares['barrier']):.2f} %"
+    )
+    return shares
 
 
 def check_b2(args, kw, label, main_batch, flush):
@@ -421,8 +505,35 @@ def check_b2(args, kw, label, main_batch, flush):
         f"{k1_session_bytes(P, R, B, False)} B per scoring pass + {n} moves x "
         f"22 B + {iters} x 8 x {B} B = {by} B at {PEAK_BYTES_PER_S} B/s)"
     )
+    split = b2_split(a, k, label)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                max_abs_err=0.0)
+                max_abs_err=0.0, split=split)
+
+
+def check_b2_ties(dev):
+    """Phase 2b's tie case: an unweighted cluster (equal partition
+    weights, so candidate values tie often and the index decides) at the
+    10k x 100 bucket, batch 100, leaders off and on; all seven outputs
+    equal to the plain version's under ``==``."""
+    import torch
+
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    args, kw = capture_session(*MAIN_SHAPE, MAIN_REASSIGN, SEED, dev,
+                               weighted=False)
+    for allow_leader in (False, True):
+        a, k = b2_variant(args, kw, allow_leader, False, 100)
+        got = ps.pallas_session(*a, **k)
+        ref = ps.pallas_session_plain(*a, **k)
+        torch.cuda.synchronize()
+        for name, x, z in zip(B2_NAMES, got, ref):
+            same = x == z if not torch.is_tensor(x) else torch.equal(x, z)
+            if not same:
+                fail(f"pallas_session unweighted 10k x 100 allow_leader="
+                     f"{allow_leader}: output {name} differs from the plain "
+                     f"version")
+        log(f"pallas_session unweighted 10k x 100 allow_leader={allow_leader} "
+            f"batch=100: equal (7 outputs), {got[2]} moves")
 
 
 def phase_main_path(dev):
@@ -688,9 +799,11 @@ def main() -> int:
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     b2_t = check_b2(*capture_session(*MAIN_SHAPE, MAIN_REASSIGN, SEED, dev),
                     "10k x 100", 100, flush_buf.zero_)
-    check_b2(*capture_session(*SCALE_SHAPE, SCALE_MOVES, SEED + 1, dev),
-             "131072 x 256", 128, flush_buf.zero_)
+    b2_scale = check_b2(*capture_session(*SCALE_SHAPE, SCALE_MOVES, SEED + 1,
+                                         dev), "131072 x 256", 128,
+                        flush_buf.zero_)
     del flush_buf
+    check_b2_ties(dev)
 
     # phase 3: the main path, counts zeroed just before and read just after
     launches, xla_plan, cluster_path = phase_main_path(dev)
@@ -725,6 +838,8 @@ def main() -> int:
         "bound_ms": b2_t["bound_ms"],
         "bound_by": b2_t["bound_by"],
         "library_ms": None,
+        "split": {"10k x 100": b2_t["split"],
+                  "131072 x 256": b2_scale["split"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -46,6 +46,12 @@ from kafkabalancer_tpu_torch.solvers.scan import (
 
 Tensor = torch.Tensor
 SOURCE = "pallas_session.cu"
+# the phases of an iteration whose ends the kernel stamps (``launch``'s
+# ``stamps``), in order; the last is the next iteration's release
+STAMP_PHASES = (
+    "table", "own_scoring", "barrier", "fold_pool", "accept", "commit",
+    "release",
+)
 
 
 class SessionState:
@@ -249,7 +255,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     P = ctypes.c_void_p
     I = ctypes.c_int
     Fl = ctypes.c_float
-    lib.pallas_session_launch.argtypes = [P] * 8 + [I] * 7 + [Fl] * 3 + [P] * 4
+    lib.pallas_session_launch.argtypes = [P] * 8 + [I] * 7 + [Fl] * 3 + [P] * 5
     lib.pallas_session_launch.restype = I
     lib.pallas_session_scratch_words.argtypes = [I]
     lib.pallas_session_scratch_words.restype = ctypes.c_longlong
@@ -257,6 +263,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.pallas_session_max_brokers.restype = I
     lib.pallas_session_error_string.argtypes = [I]
     lib.pallas_session_error_string.restype = ctypes.c_char_p
+
+
+def stamp_rows(budget: int, max_moves: int) -> int:
+    """Rows of a ``stamps`` tensor: the most iterations a launch can run
+    (every iteration but the last accepts a move)."""
+    return min(budget, max_moves) + 1
 
 
 def _load() -> ctypes.CDLL:
@@ -272,11 +284,17 @@ def launch(
     churn_gate: float,
     max_moves: int,
     allow_leader: bool,
+    stamps: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Launch the kernel on ``st`` (CUDA tensors), updating its state in
     place; returns ``(log [4, max_moves], counts [3]: n | iterations |
     done)`` without waiting for the card. Anything the kernel does not
-    take, and any build or launch failure, raises."""
+    take, and any build or launch failure, raises.
+
+    ``stamps``, when given, is a contiguous int64 tensor on the card of
+    ``[stamp_rows(budget, max_moves), len(STAMP_PHASES)]``: row ``i``
+    receives block 0's ``clock64()`` at the end of each phase of iteration
+    ``i`` (rows past the iteration count are left as they were)."""
     lib = _load()
     if st.device.type != "cuda":
         raise ValueError(
@@ -290,6 +308,14 @@ def launch(
         )
     if P * max(R, B) >= 2**31:
         raise ValueError(f"pallas_session: {P} x {B} rows exceed int32 indexing")
+    if stamps is not None:
+        shape = (stamp_rows(budget, max_moves), len(STAMP_PHASES))
+        if (stamps.device != st.device or stamps.dtype != torch.int64
+                or tuple(stamps.shape) != shape or not stamps.is_contiguous()):
+            raise ValueError(
+                f"pallas_session: stamps must be a contiguous int64 {shape} "
+                f"tensor on {st.device}"
+            )
     dev = st.device
     scratch = torch.empty(
         int(lib.pallas_session_scratch_words(B)), dtype=torch.int64, device=dev
@@ -309,7 +335,8 @@ def launch(
             ptr(st.loads), ptr(st.bcount), ptr(st.always.view(u8)),
             ptr(st.universe.view(u8)), P, R, B, budget, batch, max_moves,
             int(bool(allow_leader)), float(min_replicas), float(min_unbalance),
-            float(churn_gate), ptr(scratch), ptr(log), ptr(counts), stream,
+            float(churn_gate), ptr(scratch), ptr(log), ptr(counts),
+            ptr(stamps), stream,
         )
     if err != 0:
         msg = lib.pallas_session_error_string(err).decode()

@@ -127,7 +127,8 @@ class Captured(Exception):
     """Stops a plan once its first session call is seen."""
 
 
-def captured_session(n_parts, n_brokers, device, monkeypatch, seed=3):
+def captured_session(n_parts, n_brokers, device, monkeypatch, seed=3,
+                     weighted=True):
     """The whole-session kernel's arguments for a plan's first chunk,
     captured from ``plan(engine="pallas")``."""
     seen = []
@@ -139,8 +140,9 @@ def captured_session(n_parts, n_brokers, device, monkeypatch, seed=3):
     monkeypatch.setattr(ps, "pallas_session", capture)
     with pytest.raises(Captured):
         scan.plan(
-            synth_cluster(n_parts, n_brokers, rf=3, seed=seed), cfg(), 1,
-            batch=16, engine="pallas", device=device,
+            synth_cluster(n_parts, n_brokers, rf=3, seed=seed,
+                          weighted=weighted),
+            cfg(), 1, batch=16, engine="pallas", device=device,
         )
     monkeypatch.undo()
     return seen[0]
@@ -198,6 +200,56 @@ def test_session_kernel_matches_plain_at_the_widest_bucket(
     for a, c in zip(got, ref):
         if torch.is_tensor(a):
             assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_session_kernel_matches_plain_on_ties(
+    cuda_device, monkeypatch, allow_leader, batch
+):
+    """Every partition weighs the same: candidate values tie often, and
+    the acceptance's rank order is decided by the candidate index."""
+    args, kw = captured_session(3000, 60, cuda_device, monkeypatch,
+                                weighted=False)
+    args[13] = 1 << 20
+    args[14] = batch
+    kw.update(max_moves=8192, allow_leader=allow_leader)
+    got = ps.pallas_session(*args, **kw)
+    ref = ps.pallas_session_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[2] > 0 and got[2] == ref[2]
+    for a, c in zip(got, ref):
+        if torch.is_tensor(a):
+            assert a.dtype == c.dtype and torch.equal(a, c)
+
+
+def test_stamped_launch_matches_unstamped(cuda_device, monkeypatch):
+    """Phase stamps change no output; every iteration's stamps ascend."""
+    args, kw = captured_session(3000, 60, cuda_device, monkeypatch)
+    budget, max_moves = 1 << 20, 8192
+    kw.update(max_moves=max_moves, allow_leader=False)
+
+    def run(stamps=None):
+        st = ps.SessionState(args[0], args[1], args[3], *args[4:11],
+                             kw["all_allowed"])
+        log, counts = ps.launch(st, args[11], args[12], budget, 16, args[15],
+                                max_moves, False, stamps=stamps)
+        return st, log, counts
+
+    st0, log0, counts0 = run()
+    stamps = torch.zeros((ps.stamp_rows(budget, max_moves),
+                          len(ps.STAMP_PHASES)), dtype=torch.int64,
+                         device=cuda_device)
+    st1, log1, counts1 = run(stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(counts0, counts1) and torch.equal(log0, log1)
+    assert torch.equal(st0.replicas, st1.replicas)
+    assert torch.equal(st0.loads, st1.loads)
+    iters = int(counts1[1])
+    assert iters > 1
+    flat = stamps[:iters].reshape(-1)
+    assert bool((flat[1:] >= flat[:-1]).all())
+    assert not bool(stamps[iters:].any())
 
 
 @pytest.mark.parametrize("allow_leader", [False, True])
