@@ -12,10 +12,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on the card, on the inputs the main path gives it (captured from a
    one-iteration session) at the 10k x 100 bucket and at 131072 x 256,
    sweeping allow_leader, restricted ``allowed`` and the colocation
-   counts. Tolerance: zero — all eight outputs equal under ``==``.
-   Device times (CUDA events, L2 flushed, the host's per-call cost kept
-   out by a spin kernel), host times per call, the plain version's times
-   and the bound.
+   counts, then the same sweep on an unweighted cluster (equal weights:
+   values tie often and the lowest row decides) at both shapes.
+   Tolerance: zero — all eight outputs equal under ``==``. Device times
+   (CUDA events, L2 flushed, the host's per-call cost kept out by a spin
+   kernel), host times per call, the plain version's times and the
+   bound.
 2b. The whole-session kernel (``pallas_session``) against its plain
    version on the card, on the first chunk of ``plan(engine="pallas")``
    at the 10k x 100 bucket (budget: the whole chunk) and at 131072 x 256
@@ -43,6 +45,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. Scale: a 131072 x 256 cluster through ``plan`` for a bounded number of
    moves; time per session iteration. 4b: the same with
    ``engine="pallas"``.
+5. The scoring pass's division (``score::quot``: the rounded reciprocal
+   and one FMA correction) against the IEEE division for every finite
+   float32 x, at every avg the run's scoring passes met (recorded from the
+   plain versions, which compute the kernels' avgs with the same bits, and
+   from phase 4's kernel calls) and at a seeded sweep that includes powers
+   of two and all-ones significands. A single mismatch fails the run.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two stdout lines are the kernels JSON line and
@@ -119,9 +127,10 @@ def cuda_ms(fn, reps, flush):
     return statistics.median(dev), statistics.median(host)
 
 
-def capture_inputs(n_parts, n_brokers, dev):
+def capture_inputs(n_parts, n_brokers, dev, weighted=True):
     """The scoring kernel's inputs at the first iteration of the main
-    path's session on a synthetic cluster (cloned at the call)."""
+    path's session on a synthetic cluster (cloned at the call;
+    ``weighted=False``: every partition weighs the same)."""
     import torch
 
     from kafkabalancer_tpu_torch.models import default_rebalance_config
@@ -140,7 +149,7 @@ def capture_inputs(n_parts, n_brokers, dev):
 
     cfg = default_rebalance_config()
     cfg.min_unbalance = 1e-7
-    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=SEED, weighted=True)
+    pl = synth_cluster(n_parts, n_brokers, rf=3, seed=SEED, weighted=weighted)
     plan(pl, cfg, 1, batch=100, device=dev, scorer=capture)
     if not seen:
         fail(f"no scoring call captured at {n_parts}x{n_brokers}")
@@ -217,9 +226,9 @@ def k1_bound_ms(args, allow_leader):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_k1(base, label):
+def check_k1(base, label, timed=True):
     """Phase 2 at one shape: every variant equal to the plain version;
-    returns the timing of the main path's own variant."""
+    returns the timing of the main path's own variant (``timed``)."""
     import torch
 
     from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
@@ -256,6 +265,8 @@ def check_k1(base, label):
                 )
                 if not restricted and not colo and not allow_leader:
                     main = (args, err)
+    if not timed:
+        return None
     args, err = main
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -617,6 +628,72 @@ def phase_main_path(dev):
     return launches, out.getvalue(), path
 
 
+# every avg the run's scoring passes meet (phase 5), as [1] float32 tensors
+AVGS = []
+
+
+def record_avgs():
+    """From here on, every call of the scoring pass's plain version records
+    its avg (scal[0]; the callers build a new scal per call): the plain
+    versions compute every avg the kernels meet on the same inputs, with
+    the same bits."""
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    plain = sk.shard_score_plain
+
+    def recording(*args, **kw):
+        AVGS.append(args[7][:1])  # a view: no device work
+        return plain(*args, **kw)
+
+    sk.shard_score_plain = recording
+    ps.shard_score_plain = recording
+
+
+def avg_sweep():
+    """Phase 5's seeded avgs: powers of two and all-ones significands from
+    2^-41 to 2^41 (the reciprocal's range and one binade beyond), the two
+    floats just outside the range, and 200 log-uniform values over
+    [1e-3, 1e9]."""
+    import numpy as np
+
+    exps = np.arange(-41, 42)
+    pow2 = np.ldexp(np.float32(1), exps).astype(np.float32)
+    ones = ((exps + 127).astype(np.uint32) << 23 | 0x7FFFFF).view(np.float32)
+    edge = np.array([np.nextafter(np.float32(2.0**-40), np.float32(0)),
+                     np.nextafter(np.float32(2.0**40), np.float32(np.inf))],
+                    np.float32)
+    rng = np.random.default_rng(SEED)
+    logu = (10.0 ** rng.uniform(-3, 9, 200)).astype(np.float32)
+    return np.concatenate([pow2, ones, edge, logu])
+
+
+def phase_division(dev):
+    """Phase 5: the reciprocal division against the IEEE division for every
+    finite float32 x at every avg met and at the sweep."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+
+    met = torch.unique(torch.cat([a.to(dev, torch.float32) for a in AVGS]))
+    sweep = torch.tensor(avg_sweep(), device=dev)
+    avgs = torch.cat([met, sweep])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bad = sk.div_mismatches(avgs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    wrong = torch.nonzero(bad).flatten()
+    if wrong.numel():
+        fail(f"division check: {int(bad.sum())} mismatches at "
+             f"{wrong.numel()} avgs, e.g. avg {avgs[wrong[:4]].tolist()}")
+    log(f"division check: the reciprocal quotient equals the IEEE quotient "
+        f"for every finite float32 x at {avgs.numel()} avgs ({met.numel()} "
+        f"met by this run's scoring passes, range {float(met.min())} .. "
+        f"{float(met.max())}; {sweep.numel()} in the sweep): 0 mismatches "
+        f"in {avgs.numel()} x 2^32 - 2^25 quotients, {secs} s")
+
+
 def phase_scale(dev):
     import torch
 
@@ -630,11 +707,15 @@ def phase_scale(dev):
     pl = synth_cluster(n_parts, n_brokers, rf=3, seed=SEED + 1, weighted=True)
     cfg = default_rebalance_config()
     cfg.min_unbalance = 1e-7
+    def scorer(*args, **kw):
+        AVGS.append(args[7][:1])  # a view: no device work
+        return sk.shard_score(*args, **kw)
+
     obs.begin_invocation()
     sk.shard_score.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    opl = plan(pl, cfg, SCALE_MOVES, batch=128, device=dev)
+    opl = plan(pl, cfg, SCALE_MOVES, batch=128, device=dev, scorer=scorer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
@@ -791,9 +872,14 @@ def main() -> int:
         for line in nvcc.build_logs.get(name, "").strip().splitlines():
             log(f"  nvcc {name}: {line}")
 
+    record_avgs()
     # phase 2: the scoring kernel against its plain version
     main_t = check_k1(capture_inputs(*MAIN_SHAPE, dev), "10k x 100")
     check_k1(capture_inputs(*SCALE_SHAPE, dev), "131072 x 256")
+    check_k1(capture_inputs(*MAIN_SHAPE, dev, weighted=False),
+             "10k x 100 unweighted", timed=False)
+    check_k1(capture_inputs(*SCALE_SHAPE, dev, weighted=False),
+             "131072 x 256 unweighted", timed=False)
 
     # phase 2b: the whole-session kernel against its plain version
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -813,6 +899,9 @@ def main() -> int:
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
+
+    # phase 5: the division check
+    phase_division(dev)
 
     print(json.dumps({"kernels": [{
         "name": "shard_score",

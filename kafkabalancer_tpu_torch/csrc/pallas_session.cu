@@ -4,8 +4,8 @@
 // Replaces kafkabalancer_tpu/solvers/pallas_session.py:_kernel, the Pallas
 // TPU kernel behind pallas_session. One launch runs what the torch session
 // (solvers/scan.py) runs as a host loop: per iteration it scores every
-// target broker and every hot/cold pair column (score::stage_tile and
-// score::score_staged, the tile body of the scoring kernel shard_score.cu),
+// target broker and every hot/cold pair column (score::score_rows, the
+// block body of the scoring kernel shard_score.cu),
 // pools the winners into K = B + B/2 candidates, accepts a gain-ordered
 // prefix with exact sequential deltas and the churn gate, commits the
 // accepted moves to the loads, the broker counts, the replicas, the
@@ -35,9 +35,11 @@
 //
 // Design:
 // - Cooperative launch (its co-residency guarantee is what makes spinning
-//   safe), grid = co-resident blocks (occupancy x SMs, at most one per
-//   tile; registers are bounded so that four blocks fit an SM), each
-//   looping over tiles grid-stride. Session state lives in device memory
+//   safe), grid = co-resident blocks (occupancy x SMs; registers are
+//   bounded so that four blocks fit an SM), each scoring a contiguous chunk
+//   of rows (score::split_rows), at most as many blocks as chunks. Each
+//   iteration a block's target minima stay in registers across its tiles
+//   and its keys go to the device keys once. Session state lives in device memory
 //   the wrapper allocates (working copies of loads, broker counts,
 //   replicas and member bytes; the log; n, iterations and a done flag);
 //   every block reads it with L1-bypassing loads.
@@ -74,15 +76,16 @@
 //   loads + sum(targets) - sum(sources), each sum in ascending candidate
 //   order, as the TPU kernel does (not the torch session's
 //   sources-then-targets scatter). No [K, K] matrix is stored.
-// - The kernel is specialised on the allowed mask and the leader pass.
+// - The kernel is specialised on the allowed mask, the leader pass and the
+//   scoring pass's targets per thread (2 up to B = 128, 4 above).
 // Not carried over from the TPU kernel (Mosaic and VMEM workarounds): the
 // transposed [R, P] layout, integers held in float32, one-hot MXU gathers
 // and placements, pairwise [K, K] masks, the TILE_P alignment of P and the
 // VMEM capacity gate. State is in device memory, so the only limits are
 // block 0's shared memory (B <= kMaxB) and the tile's.
 //
-// Exactness: as shard_score.cu (--fmad=false, IEEE division, -0.0 packs as
-// +0.0, a NaN candidate never wins, an empty column is (+inf, row 0)), and
+// Exactness: as shard_score.cu (--fmad=false, the IEEE quotient, -0.0 packs
+// as +0.0, a NaN candidate never wins, an empty column is (+inf, row 0)), and
 // every reduction in the order of the plain version. Skipping a zero term
 // of an ordered sum changes no bit (every accumulator starts at +0.0, and
 // x + +-0.0 == x for x != 0, +0.0 + -0.0 == +0.0); a non-finite applied
@@ -106,7 +109,9 @@ using score::kThreads;
 using score::kWarps;
 
 constexpr int kMaxB = 1024;  // broker bucket the acceptance block takes
-constexpr int kBlocksPerSm = 8;  // the scoring kernel's tile sizing
+// target brokers per thread in the scoring pass's target pass: 2 up to
+// this broker bucket, 4 above
+constexpr int kTgt2MaxB = 128;
 // the broker table ranks up to this many brokers by counting, more by a
 // bitonic sort (counting measured faster at B = 128, the sort at B = 256)
 constexpr int kCountRankMaxB = 128;
@@ -140,7 +145,7 @@ struct Sess {
   int32_t* counts;           // [3]: n | iterations | done
   long long* stamps;         // [iterations, kPhases] clock64 or null
   float minrep, min_unb, churn;
-  int K, tile, ntiles, budget, batch, max_moves;
+  int K, chunk, tile, budget, batch, max_moves;
 };
 
 // Block 0's thread 0 records clock64() at the end of phase `ph` of
@@ -170,8 +175,8 @@ __host__ __device__ __forceinline__ int pow2ceil(int n) {
 }
 
 // The dynamic shared memory: the broker table, then a work area that holds
-// a tile's staged masks while scoring and the candidate pool while block 0
-// accepts.
+// the scoring pass's keys and staged masks (score::work_bytes) while
+// scoring and the candidate pool while block 0 accepts.
 struct Layout {
   float* loads;      // [B]
   float* F;          // [B]
@@ -791,7 +796,7 @@ __device__ void accept_commit(const Sess& s, const Layout& l, Scalars& sc,
   stamp(s, it, 5);
 }
 
-template <bool kAlw, bool kLead>
+template <bool kAlw, bool kLead, int kTgt>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) session_kernel(Sess s) {
   extern __shared__ __align__(16) uint8_t s_dyn[];
   __shared__ score::TileShared ts;
@@ -802,10 +807,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) session_kernel(Sess s) {
   const score::Rows rows = s.rows;
   const int B = rows.B, B2 = rows.B2;
   const Layout l = layout(s_dyn, B, B2, s.K);
-  uint8_t* const s_mem = l.work;
-  uint8_t* const s_alw = l.work + score::round16(s.tile * B);
   unsigned long long* const keys =
       s.keys + (blockIdx.x % kKeyCopies) * score::key_columns(B, B2);
+  const int r0 = blockIdx.x * s.chunk;
+  const int r1 = min(rows.P, r0 + s.chunk);
   Counter arrive(*s.arrive), epoch(*s.epoch);
 
   for (int it = 0;; ++it) {
@@ -821,15 +826,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) session_kernel(Sess s) {
     stamp(s, it, 0);
     const score::Table tb{l.loads, l.F, l.bvalid, l.head, l.next, l.t,
                           sc.avg, s.minrep, 0.0f};
-    for (int ti = blockIdx.x; ti < s.ntiles; ti += gridDim.x) {
-      const int p0 = ti * s.tile;
-      const int nrows = min(s.tile, rows.P - p0);
-      score::stage_tile<kAlw, true>(rows, ts, s_mem, s_alw, p0, nrows);
-      __syncthreads();
-      score::score_staged<kAlw, false, kLead>(rows, tb, ts, s_mem, s_alw, p0,
-                                              nrows, keys);
-      __syncthreads();  // before the next tile's staging
-    }
+    score::score_rows<kAlw, false, kLead, true, kTgt>(rows, tb, ts, l.work,
+                                                      s.tile, r0, r1, keys);
+    __syncthreads();  // the offers, before the release and the work area's reuse
     stamp(s, it, 1);
     // this block's offers are done (the barrier above orders them before
     // thread 0's release)
@@ -861,14 +860,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) session_kernel(Sess s) {
   }
 }
 
-int dyn_smem_bytes(int tile, int B, int B2, int K, bool has_allowed) {
+int dyn_smem_bytes(int tile, int B, int B2, int R, int K, bool has_allowed) {
   return table_bytes(B, B2) +
-         std::max(score::mask_bytes(tile, B, has_allowed), pool_bytes(K, B));
+         std::max(score::work_bytes(tile, B, R, has_allowed),
+                  pool_bytes(K, B));
 }
 
-template <bool kAlw, bool kLead>
-cudaError_t launch(Sess s, int smem, int n_sm, cudaStream_t st) {
-  auto kernel = session_kernel<kAlw, kLead>;
+template <bool kAlw, bool kLead, int kTgt>
+cudaError_t launch(Sess s, int n_sm, cudaStream_t st) {
+  auto kernel = session_kernel<kAlw, kLead, kTgt>;
+  const int B = s.rows.B, B2 = s.rows.B2;
+  const int max_rows = score::max_tile(B, s.rows.R, kAlw);
+  const int smem = dyn_smem_bytes(max_rows, B, B2, s.rows.R, s.K, kAlw);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -877,7 +880,10 @@ cudaError_t launch(Sess s, int smem, int n_sm, cudaStream_t st) {
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int grid = std::min(per_sm * n_sm, std::max(1, s.ntiles));
+  const score::Split sp = score::split_rows(s.rows.P, per_sm * n_sm, max_rows);
+  s.chunk = sp.chunk;
+  s.tile = sp.tile;
+  const int grid = sp.blocks;
   void* args[] = {&s};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(grid), dim3(kThreads), args,
@@ -886,11 +892,13 @@ cudaError_t launch(Sess s, int smem, int n_sm, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-using Launch = cudaError_t (*)(Sess, int, int, cudaStream_t);
-// indexed by allowed << 1 | leader
-const Launch kLaunch[4] = {
-    launch<false, false>, launch<false, true>,
-    launch<true, false>, launch<true, true>,
+using Launch = cudaError_t (*)(Sess, int, cudaStream_t);
+// indexed by (B > kTgt2MaxB) << 2 | allowed << 1 | leader
+const Launch kLaunch[8] = {
+    launch<false, false, 2>, launch<false, true, 2>,
+    launch<true, false, 2>,  launch<true, true, 2>,
+    launch<false, false, 4>, launch<false, true, 4>,
+    launch<true, false, 4>,  launch<true, true, 4>,
 };
 
 long long key_words(int B) {
@@ -953,8 +961,6 @@ int pallas_session_launch(
           cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int tile =
-      score::tile_rows(P, B, allowed != nullptr, n_sm, kBlocksPerSm);
   const int K = B + B2;
   Sess s{};
   s.rows = score::Rows{replicas, cols, member, allowed, nullptr, P, R, B, B2};
@@ -974,14 +980,12 @@ int pallas_session_launch(
   s.min_unb = min_unb;
   s.churn = churn;
   s.K = K;
-  s.tile = tile;
-  s.ntiles = (P + tile - 1) / tile;
   s.budget = budget;
   s.batch = batch;
   s.max_moves = max_moves;
-  const int smem = dyn_smem_bytes(tile, B, B2, K, allowed != nullptr);
-  const int variant = (allowed ? 2 : 0) | (allow_leader ? 1 : 0);
-  return static_cast<int>(kLaunch[variant](s, smem, n_sm, st));
+  const int variant = (B > kTgt2MaxB ? 4 : 0) | (allowed ? 2 : 0) |
+                      (allow_leader ? 1 : 0);
+  return static_cast<int>(kLaunch[variant](s, n_sm, st));
 }
 
 const char* pallas_session_error_string(int code) {

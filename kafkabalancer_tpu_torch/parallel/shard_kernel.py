@@ -147,6 +147,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.shard_score_launch.restype = I
     lib.shard_score_scratch_words.argtypes = [I, I]
     lib.shard_score_scratch_words.restype = ctypes.c_longlong
+    lib.shard_score_div_check.argtypes = [P, I, P, P]
+    lib.shard_score_div_check.restype = I
     lib.shard_score_error_string.argtypes = [I]
     lib.shard_score_error_string.restype = ctypes.c_char_p
 
@@ -226,6 +228,27 @@ def _launch(
         raise RuntimeError(f"shard_score kernel launch failed: {msg} ({err})")
     shard_score.launches += 1
     return vf, pf, vl, pl_, vpf, ppf, vpl, ppl
+
+
+def div_mismatches(avgs: Tensor) -> Tensor:
+    """The kernel's division check, on the card: for each ``avgs[j]``
+    (float32, CUDA), how many finite float32 ``x`` give a quotient in the
+    scoring pass (``x / avg`` through the rounded reciprocal and one FMA
+    correction, ``score::quot``) whose bits differ from the IEEE ``x /
+    avg``. Every one of the 2**32 bit patterns is tried; all zeros means
+    the two divisions agree for that ``avg``. Returns int64 counts."""
+    _check(avgs, "avgs", torch.float32, (avgs.shape[0],))
+    lib = _load()
+    bad = torch.empty(avgs.shape[0], dtype=torch.int64, device=avgs.device)
+    with torch.cuda.device(avgs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.shard_score_div_check(
+            avgs.data_ptr(), avgs.shape[0], bad.data_ptr(), stream
+        )
+    if err != 0:
+        msg = lib.shard_score_error_string(err).decode()
+        raise RuntimeError(f"shard_score division check failed: {msg} ({err})")
+    return bad
 
 
 def shard_score(

@@ -1,15 +1,17 @@
-"""Time one of the port's kernels in two checkouts, in turns, on one GPU.
+"""Time one of the port's kernels in two or more checkouts, in turns, on
+one GPU.
 
-    python scripts/kernel_ab.py PARENT_TREE CHANGE_TREE [--rounds N]
-        [--kernel shard_score|pallas_session]
+    python scripts/kernel_ab.py PARENT_TREE CHANGE_TREE [MORE_TREES ...]
+        [--rounds N] [--kernel shard_score|pallas_session]
 
 Each tree is a checkout of this repository (for instance a ``git archive``
 of the parent commit unpacked into a directory ``.gitignore`` lists). The
-script runs one process per (tree, turn) in the order parent, change,
-change, parent (repeated ``--rounds`` times); each process builds that
-tree's kernel and times it at the 10k x 100 bucket and at 131072 x 256
-with that tree's ``chip_smoke`` helpers (``cuda_ms``: device ms per call,
-CUDA events, L2 flushed, a spin kernel hiding the host's cost):
+script runs one process per (tree, turn) in the order of the trees, then
+in reverse (parent, change, change, parent for two; repeated ``--rounds``
+times); each process builds that tree's kernel and times it at the 10k x
+100 bucket and at 131072 x 256 with that tree's ``chip_smoke`` helpers
+(``cuda_ms``: device ms per call, CUDA events, L2 flushed, a spin kernel
+hiding the host's cost):
 
 - ``shard_score`` (default): the main path's scoring inputs
   (``capture_inputs``), main-path variant, median of 20;
@@ -20,7 +22,8 @@ CUDA events, L2 flushed, a spin kernel hiding the host's cost):
   of 5.
 
 Prints one JSON line per process and, last, the medians per tree and
-shape. Needs a CUDA device; exits non-zero without one.
+shape. Trees are named "parent" and "change" when there are two, else by
+their path as given. Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -66,16 +69,18 @@ print(json.dumps(out))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("parent")
-    ap.add_argument("change")
+    ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--kernel", choices=("shard_score", "pallas_session"),
                     default="shard_score")
     a = ap.parse_args()
-    trees = {"parent": os.path.abspath(a.parent), "change": os.path.abspath(a.change)}
+    if len(a.trees) < 2:
+        ap.error("give at least two trees")
+    names = ["parent", "change"] if len(a.trees) == 2 else list(a.trees)
+    trees = {n: os.path.abspath(t) for n, t in zip(names, a.trees)}
     times: dict = {name: {} for name in trees}
     for _ in range(a.rounds):
-        for name in ("parent", "change", "change", "parent"):
+        for name in names + names[::-1]:
             proc = subprocess.run(
                 [sys.executable, "-c", CHILD, trees[name], json.dumps(SHAPES),
                  a.kernel],

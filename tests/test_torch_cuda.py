@@ -9,11 +9,15 @@ machine that has only the port's dependencies:
 tests.) Each CUDA kernel is held against its plain torch version on the
 inputs the session gives it (captured from a real session call) with
 tolerance zero: the scoring kernel's eight outputs and the whole-session
-kernel's seven, equal under ``==``. The torch session with the scoring
-kernel must emit the same plan as with the plain scorer, and
+kernel's seven, equal under ``==``; the scoring kernel also on synthetic
+inputs at the shapes its tiling must handle. Its reciprocal division equals
+the IEEE division for every finite float32 x at a few avgs. The torch
+session with the scoring kernel must emit the same plan as with the plain
+scorer, and
 ``plan(engine="pallas")`` the same plan as ``engine="pallas-interpret"``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +26,7 @@ from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
 from kafkabalancer_tpu_torch.solvers import pallas_session as ps
 from kafkabalancer_tpu_torch.solvers import scan
 from kafkabalancer_tpu_torch.utils.synth import synth_cluster
-from torch_helpers import cuda_device  # noqa: F401
+from torch_helpers import cuda_device, synthetic  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +96,86 @@ def test_kernel_takes_any_pair_frame(cuda_device, allow_leader):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and bool((a == b).all())
+
+
+# (P, B, real rows): P below one tile; P not a multiple of the tile and
+# spanning more tiles than the grid has blocks (the persistent walk); the
+# widest broker bucket; more target groups than threads (B > 1024); B not
+# a multiple of 4 or 2 (the target pass's multi-byte reads); a chunk of
+# padding rows
+SYNTHETIC = [
+    (5, 8, 5),
+    (100003, 24, 100003),
+    (3000, 1024, 2900),
+    (300, 1100, 300),
+    (777, 30, 700),
+    (50, 13, 50),
+    (4096, 128, 2500),
+]
+
+
+@pytest.mark.parametrize("equal_weights", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("shape", SYNTHETIC)
+def test_kernel_matches_plain_on_synthetic_inputs(
+    cuda_device, shape, allow_leader, equal_weights
+):
+    """Restricted and colocation variants too; equal weights make values
+    tie, so the lowest row decides."""
+    P, B, n_real = shape
+    full = synthetic(P, B, cuda_device, seed=P + B,
+                     n_real=n_real, equal_weights=equal_weights)
+    for restricted in (False, True):
+        for colo in (False, True):
+            args = list(full)
+            if not restricted:
+                args[3] = None
+            if not colo:
+                args[11] = None
+                args[7] = args[7].clone()
+                args[7][2] = 0.0
+            got = sk.shard_score(*args, allow_leader=allow_leader)
+            ref = sk.shard_score_plain(*args, allow_leader=allow_leader)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("vf", "pf", "vl", "pl", "vpf", "ppf",
+                                   "vpl", "ppl"), got, ref):
+                assert a.dtype == b.dtype and bool((a == b).all()), (
+                    name, restricted, colo)
+            assert bool(torch.isfinite(got[0]).any())
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_kernel_matches_plain_with_dense_member_rows(cuda_device, allow_leader):
+    """Half of every row's brokers are members: far more member cells than
+    a tile lists, so the row pass works the rest where it finds them."""
+    args = synthetic(600, 64, cuda_device, seed=13)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    args[2] = torch.rand(args[2].shape, generator=g, device=cuda_device) < 0.5
+    for restricted in (False, True):
+        a = list(args)
+        if not restricted:
+            a[3] = None
+        got = sk.shard_score(*a, allow_leader=allow_leader)
+        ref = sk.shard_score_plain(*a, allow_leader=allow_leader)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert x.dtype == y.dtype and bool((x == y).all())
+        assert bool(torch.isfinite(got[4]).any())
+
+
+def test_division_matches_ieee_for_every_x(cuda_device):
+    """The scoring pass's reciprocal division equals the IEEE division for
+    every finite float32 x at each avg: one from a session, powers of two,
+    significands of all ones, and values outside the reciprocal's range
+    (which take the IEEE division)."""
+    avg = float(captured(3000, 60, cuda_device)[7][0])
+    avgs = [avg, 1.0, 3.0, 0.1, 123456.7, 2.0**39, 2.0**-39,
+            float(np.float32(1.9999999)), float(np.float32(2.0**20 * 1.9999999)),
+            1e-30, 1e30]
+    t = torch.tensor(avgs, dtype=torch.float32, device=cuda_device)
+    bad = sk.div_mismatches(t)
+    torch.cuda.synchronize()
+    assert bad.tolist() == [0] * len(avgs)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
