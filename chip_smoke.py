@@ -52,8 +52,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from phase 4's kernel calls) and at a seeded sweep that includes powers
    of two and all-ones significands. A single mismatch fails the run.
 
+6. The headline configuration of the reference (``-fused -fused-batch=100
+   -allow-leader -fused-polish``, here with ``-min-unbalance=1e-7``) through
+   ``cli.run`` on phase 3's cluster, with the torch session (the scoring
+   kernel in every move phase) and with ``-fused-engine=pallas`` (one
+   whole-session launch up front); each plan byte-identical to the same
+   alternation with the kernel's plain version (``scorer=
+   shard_score_plain``, ``engine="pallas-interpret"``). Prints the wall,
+   the moves, the final unbalance beside phase 3's, the host time and
+   count of the move, swap and shuffle phases, and the launches.
+7. The fused ``-rebalance-leader`` session through ``cli.run`` at 10k x
+   100: batch 1 for a bounded budget (its plan against the same float32
+   session on CPU tensors is printed, a finding) and batch 100 to
+   convergence.
+8. ``-solver=tpu`` through ``cli.run``: byte-identical stdout to
+   ``-solver=greedy`` for 10 moves on a 1000 x 40 cluster (above
+   ``MIN_DEVICE_CANDIDATES``, so the device pass runs), then one move at
+   10k x 100 with its device passes and re-scanned window rows.
+
 Each path's launch counts are set to 0 just before it runs and read just
-after. The last two stdout lines are the kernels JSON line and
+after. Phases 6-8 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -547,17 +565,32 @@ def check_b2_ties(dev):
             f"batch=100: equal (7 outputs), {got[2]} moves")
 
 
+NO_MOVES = '{"partitions": null}'
+
+
+def planned_unbalance(text, plan):
+    """The host oracle's unbalance of the cluster ``text`` with every move
+    of the reassignment document ``plan`` applied."""
+    from kafkabalancer_tpu_torch.balancer.costmodel import (
+        get_bl,
+        get_broker_load,
+        get_unbalance_bl,
+    )
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+
+    final = get_partition_list_from_reader(text, True)
+    by_key = {(p.topic, p.partition): p for p in final.partitions}
+    for row in json.loads(plan).get("partitions") or []:
+        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
+    return get_unbalance_bl(get_bl(get_broker_load(final)))
+
+
 def phase_main_path(dev):
     """Phase 3: the CLI's -fused path on the card, then the same session
     with the plain scorer."""
     import torch
 
     from kafkabalancer_tpu_torch import cli, obs
-    from kafkabalancer_tpu_torch.balancer.costmodel import (
-        get_bl,
-        get_broker_load,
-        get_unbalance_bl,
-    )
     from kafkabalancer_tpu_torch.codecs import (
         get_partition_list_from_reader,
         write_partition_list,
@@ -577,10 +610,7 @@ def phase_main_path(dev):
     with open(path, "w") as fh:
         fh.write(text)
 
-    def unbalance(p):
-        return get_unbalance_bl(get_bl(get_broker_load(p)))
-
-    u0 = unbalance(get_partition_list_from_reader(text, True))
+    u0 = planned_unbalance(text, NO_MOVES)
     args = ["kafkabalancer", "-input-json", "-input", path, "-fused",
             "-fused-batch=100", "-max-reassign=1000000",
             "-min-unbalance=1e-7"]
@@ -598,12 +628,7 @@ def phase_main_path(dev):
         fail("the plan is not a non-empty reassignment document")
     if launches <= 0:
         fail("the main path did not launch the shard_score kernel")
-    # the final assignment: the input with every emitted move applied
-    final = get_partition_list_from_reader(text, True)
-    by_key = {(p.topic, p.partition): p for p in final.partitions}
-    for row in doc["partitions"]:
-        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
-    u1 = unbalance(final)
+    u1 = planned_unbalance(text, out.getvalue())
     if not u1 < u0:
         fail(f"final unbalance {u1} is not below the input's {u0}")
     iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
@@ -625,7 +650,7 @@ def phase_main_path(dev):
     if out2.getvalue() != out.getvalue():
         fail("the plain scorer's session emitted a different plan")
     log("main path: the plain scorer's session emitted the identical plan")
-    return launches, out.getvalue(), path
+    return launches, out.getvalue(), path, u1
 
 
 # every avg the run's scoring passes meet (phase 5), as [1] float32 tensors
@@ -738,11 +763,6 @@ def phase_pallas_path(dev, xla_plan, path):
     import torch
 
     from kafkabalancer_tpu_torch import cli, obs
-    from kafkabalancer_tpu_torch.balancer.costmodel import (
-        get_bl,
-        get_broker_load,
-        get_unbalance_bl,
-    )
     from kafkabalancer_tpu_torch.codecs import (
         get_partition_list_from_reader,
         write_partition_list,
@@ -754,11 +774,7 @@ def phase_pallas_path(dev, xla_plan, path):
 
     with open(path) as fh:
         text = fh.read()
-
-    def unbalance(p):
-        return get_unbalance_bl(get_bl(get_broker_load(p)))
-
-    u0 = unbalance(get_partition_list_from_reader(text, True))
+    u0 = planned_unbalance(text, NO_MOVES)
     args = ["kafkabalancer", "-input-json", "-input", path, "-fused",
             "-fused-engine=pallas", "-fused-batch=100",
             f"-max-reassign={MAIN_REASSIGN}", "-min-unbalance=1e-7"]
@@ -778,11 +794,7 @@ def phase_pallas_path(dev, xla_plan, path):
         fail("the pallas plan is not a non-empty reassignment document")
     if launches <= 0:
         fail("the pallas path did not launch the pallas_session kernel")
-    final = get_partition_list_from_reader(text, True)
-    by_key = {(p.topic, p.partition): p for p in final.partitions}
-    for row in doc["partitions"]:
-        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
-    u1 = unbalance(final)
+    u1 = planned_unbalance(text, out.getvalue())
     if not u1 < u0:
         fail(f"pallas path: final unbalance {u1} is not below the input's {u0}")
     iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
@@ -842,6 +854,245 @@ def phase_scale_pallas(dev):
     )
 
 
+def run_cli(args, device=None):
+    """``cli.run(args)`` on the card: ``(rc, stdout, stderr, wall s)``; the
+    wall ends with a device sync."""
+    import torch
+
+    from kafkabalancer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli.run(io.StringIO(""), out, err, ["kafkabalancer"] + args,
+                 device=device)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def plan_text(opl):
+    from kafkabalancer_tpu_torch.codecs import write_partition_list
+
+    buf = io.StringIO()
+    write_partition_list(buf, opl)
+    return buf.getvalue()
+
+
+def counters(prefix):
+    from kafkabalancer_tpu_torch import obs
+
+    snap = obs.REGISTRY.snapshot().get("counters", {})
+    return {k: v for k, v in sorted(snap.items()) if k.startswith(prefix)}
+
+
+# the headline planning configuration of the reference (its README and
+# benchmark suite lead with it): -allow-leader, batch 100, pair-swap polish
+HEADLINE = ["-fused", "-fused-batch=100", "-allow-leader", "-fused-polish",
+            f"-max-reassign={MAIN_REASSIGN}", "-min-unbalance=1e-7"]
+
+
+def phase_headline(dev, path, u_move):
+    """Phase 6: the headline configuration through the CLI on phase 3's
+    cluster, with the torch session (K1 in every move phase) and with
+    ``-fused-engine=pallas`` (one B2 launch up front); each plan equal to
+    the same alternation with the kernel's plain version. Returns the
+    launch counts per path."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+
+    with open(path) as fh:
+        text = fh.read()
+    u0 = planned_unbalance(text, NO_MOVES)
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    cfg.allow_leader_rebalancing = True
+    launches = {}
+    for engine, plain in (("xla", dict(scorer=sk.shard_score_plain)),
+                          ("pallas", dict(engine="pallas-interpret"))):
+        args = ["-input-json", "-input", path] + HEADLINE + [
+            f"-fused-engine={engine}"]
+        sk.shard_score.launches = 0
+        ps.pallas_session.launches = 0
+        obs.begin_invocation()
+        rc, out, err, wall = run_cli(args)
+        k1, b2 = sk.shard_score.launches, ps.pallas_session.launches
+        if rc != 0:
+            fail(f"headline -fused-engine={engine} returned {rc}: {err[-2000:]}")
+        doc = json.loads(out)
+        if not doc.get("partitions"):
+            fail(f"headline -fused-engine={engine}: an empty plan")
+        if k1 <= 0 or (engine == "pallas" and b2 != 1):
+            fail(f"headline -fused-engine={engine}: shard_score launches {k1}, "
+                 f"pallas_session launches {b2}")
+        pol = counters("polish.")
+        sess = counters("solver.session_")
+        u = planned_unbalance(text, out)
+        if not u < u0:
+            fail(f"headline -fused-engine={engine}: unbalance {u} is not below "
+                 f"the input's {u0}")
+        log(f"headline -fused-engine={engine} on {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
+            f"({' '.join(HEADLINE)}): rc 0, {len(doc['partitions'])} moves "
+            f"emitted, {wall} s wall, unbalance {u} (phase 3's move session "
+            f"alone: {u_move}), shard_score launches {k1}, pallas_session "
+            f"launches {b2}")
+        log(f"headline -fused-engine={engine} split: {json.dumps(pol)} "
+            f"{json.dumps(sess)}")
+        launches[engine] = (k1, b2)
+        opl = plan(get_partition_list_from_reader(text, True), cfg,
+                   MAIN_REASSIGN, batch=100, polish=True, device=dev, **plain)
+        if plan_text(opl) != out:
+            fail(f"headline -fused-engine={engine}: the plan differs from the "
+                 f"same alternation with {plain}")
+        log(f"headline -fused-engine={engine}: the plan equals the same "
+            f"alternation with the kernel's plain version")
+    return launches
+
+
+LEADER_B1_BUDGET = 2000
+
+
+def phase_leader(dev, path):
+    """Phase 7: the fused -rebalance-leader session at 10k x 100, batch 1
+    for a bounded budget (the reference trajectory; compared with the same
+    session on CPU tensors, a finding) and batch 100 to convergence."""
+    import torch
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+
+    with open(path) as fh:
+        text = fh.read()
+    u0 = planned_unbalance(text, NO_MOVES)
+    for batch, budget in ((1, LEADER_B1_BUDGET), (100, MAIN_REASSIGN)):
+        args = ["-input-json", "-input", path, "-fused", "-rebalance-leader",
+                f"-fused-batch={batch}", f"-max-reassign={budget}",
+                "-min-unbalance=1e-7", "-complete-partition=false"]
+        rc, out, err, wall = run_cli(args)
+        if rc != 0:
+            fail(f"-rebalance-leader batch {batch} returned {rc}: {err[-2000:]}")
+        doc = json.loads(out)
+        if not doc.get("partitions"):
+            fail(f"-rebalance-leader batch {batch}: an empty plan")
+        u = planned_unbalance(text, out)
+        log(f"leader -fused -rebalance-leader -fused-batch={batch} "
+            f"-max-reassign={budget} on {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: rc 0, "
+            f"{len(doc['partitions'])} moves emitted, {wall} s wall, "
+            f"unbalance {u0} -> {u}")
+        if batch == 1:
+            cfg = default_rebalance_config()
+            cfg.min_unbalance = 1e-7
+            cfg.rebalance_leaders = True
+            t0 = time.perf_counter()
+            opl = plan(get_partition_list_from_reader(text, True), cfg, budget,
+                       batch=1, dtype=torch.float32, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            cpu_out = plan_text(opl)
+            log(f"leader batch 1: the card's plan equals the same float32 "
+                f"session on CPU tensors: {cpu_out == out} (CPU run "
+                f"{cpu_s} s)")
+            if cpu_out != out:
+                a = json.loads(out)["partitions"]
+                b = json.loads(cpu_out).get("partitions") or []
+                first = next((i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y), min(len(a), len(b)))
+                log(f"leader batch 1: the plans part at entry {first} of "
+                    f"{len(a)} (card) / {len(b)} (CPU); "
+                    f"{loads_on_both(text, dev)}")
+
+
+def loads_on_both(text, dev):
+    """Whether the float32 broker loads of the cluster ``text`` come out
+    equal from ``cost.broker_loads`` on the card and on the CPU (the
+    scatter-add order differs: ``index_put_`` on CUDA, ``index_add_`` on
+    the CPU)."""
+    import torch
+
+    from kafkabalancer_tpu_torch.balancer import steps
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.ops.cost import broker_loads
+    from kafkabalancer_tpu_torch.ops.tensorize import tensorize, to_device
+
+    pl = get_partition_list_from_reader(text, True)
+    cfg = default_rebalance_config()
+    steps.validate_weights(pl, cfg)
+    steps.fill_defaults(pl, cfg)
+    dp = tensorize(pl, cfg)
+    loads = []
+    for d in (dev, "cpu"):
+        a = to_device(dp, d, torch.float32)
+        loads.append(broker_loads(a.replicas, a.weights, a.nrep_cur, a.ncons,
+                                  dp.bvalid.shape[0]).cpu())
+    diff = int((loads[0] != loads[1]).sum())
+    return (f"initial broker loads equal on the card and the CPU: "
+            f"{diff == 0} ({diff} of {dp.nb} brokers differ, max abs "
+            f"difference {float((loads[0] - loads[1]).abs().max())})")
+
+
+TPU_SMALL = (1000, 40)
+
+
+def phase_solver_tpu(dev, path):
+    """Phase 8: -solver=tpu byte-identical to -solver=greedy on a cluster
+    where the device pass runs, then one move at 10k x 100 (the reference's
+    deployment loop: one move per invocation)."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import write_partition_list
+    from kafkabalancer_tpu_torch.solvers import tpu
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    n_parts, n_brokers = TPU_SMALL
+    small = os.path.join("chiprun_out", "smoke_cluster_small.json")
+    with open(small, "w") as fh:
+        write_partition_list(fh, synth_cluster(n_parts, n_brokers, rf=3,
+                                               seed=SEED + 2, weighted=True))
+    cands = n_parts * 2 * n_brokers
+    if cands < tpu.MIN_DEVICE_CANDIDATES:
+        fail(f"the -solver=tpu cluster has {cands} candidates, below "
+             f"{tpu.MIN_DEVICE_CANDIDATES}")
+    outs = {}
+    for solver in ("greedy", "tpu"):
+        obs.begin_invocation()
+        rc, out, err, wall = run_cli(["-input-json", "-input", small,
+                                      f"-solver={solver}", "-max-reassign=10"])
+        if rc != 0:
+            fail(f"-solver={solver} returned {rc}: {err[-2000:]}")
+        outs[solver] = out
+        c = counters("solver.window_")
+        log(f"solver: -solver={solver} -max-reassign=10 on {n_parts}x"
+            f"{n_brokers} ({cands} follower candidates): rc 0, "
+            f"{len(json.loads(out).get('partitions') or [])} moves, {wall} s, "
+            f"{json.dumps(c)}")
+        if solver == "tpu" and c.get("solver.window_passes", 0) <= 0:
+            fail("-solver=tpu made no device pass")
+    if outs["tpu"] != outs["greedy"]:
+        fail("-solver=tpu emitted another plan than -solver=greedy")
+    log("solver: -solver=tpu stdout is byte-identical to -solver=greedy")
+
+    obs.begin_invocation()
+    rc, out, err, wall = run_cli(["-input-json", "-input", path,
+                                  "-solver=tpu", "-max-reassign=1",
+                                  "-min-unbalance=1e-7"])
+    c = counters("solver.window_")
+    if rc != 0:
+        fail(f"-solver=tpu at {MAIN_SHAPE} returned {rc}: {err[-2000:]}")
+    if c.get("solver.window_passes", 0) <= 0:
+        fail("-solver=tpu at 10k x 100 made no device pass")
+    if not json.loads(out).get("partitions"):
+        fail("-solver=tpu at 10k x 100 emitted no move")
+    log(f"solver: -solver=tpu -max-reassign=1 -min-unbalance=1e-7 on "
+        f"{MAIN_SHAPE[0]}x"
+        f"{MAIN_SHAPE[1]}: rc 0, {len(json.loads(out).get('partitions') or [])} "
+        f"moves, {wall} s wall (input parse, pipeline head, one device pass "
+        f"per tier, host re-scan), device passes "
+        f"{int(c.get('solver.window_passes', 0))}, window rows re-scanned "
+        f"{int(c.get('solver.window_rows', 0))}")
+
+
 def main() -> int:
     import torch
 
@@ -864,6 +1115,11 @@ def main() -> int:
     from kafkabalancer_tpu_torch.ops import nvcc
 
     # phase 1: build every kernel from the checkout's sources, in parallel
+    start = time.perf_counter()
+
+    def done(phase):
+        log(f"phase {phase} done at {time.perf_counter() - start} s")
+
     t0 = time.perf_counter()
     libs = nvcc.build(KERNEL_SOURCES, verbose=True)
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0} s")
@@ -872,6 +1128,7 @@ def main() -> int:
         for line in nvcc.build_logs.get(name, "").strip().splitlines():
             log(f"  nvcc {name}: {line}")
 
+    done(1)
     record_avgs()
     # phase 2: the scoring kernel against its plain version
     main_t = check_k1(capture_inputs(*MAIN_SHAPE, dev), "10k x 100")
@@ -890,18 +1147,31 @@ def main() -> int:
                         flush_buf.zero_)
     del flush_buf
     check_b2_ties(dev)
+    done("2/2b")
 
     # phase 3: the main path, counts zeroed just before and read just after
-    launches, xla_plan, cluster_path = phase_main_path(dev)
+    launches, xla_plan, cluster_path, u_move = phase_main_path(dev)
     # phase 3b: the whole-session kernel's path, the same
     b2_launches = phase_pallas_path(dev, xla_plan, cluster_path)
+    done("3/3b")
+
+    # phases 6-8: the headline configuration (polish), the fused leader
+    # session and -solver=tpu, each path's counts zeroed just before it
+    headline = phase_headline(dev, cluster_path, u_move)
+    done(6)
+    phase_leader(dev, cluster_path)
+    done(7)
+    phase_solver_tpu(dev, cluster_path)
+    done(8)
 
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
+    done(4)
 
     # phase 5: the division check
     phase_division(dev)
+    done(5)
 
     print(json.dumps({"kernels": [{
         "name": "shard_score",
@@ -909,6 +1179,11 @@ def main() -> int:
         "source": "kafkabalancer_tpu_torch/csrc/shard_score.cu",
         "replaces": "kafkabalancer_tpu/parallel/shard_kernel.py:74",
         "launches": launches,
+        "launches_by_path": {
+            "3: -fused -fused-batch=100": launches,
+            "6: headline, torch session": headline["xla"][0],
+            "6: headline, -fused-engine=pallas": headline["pallas"][0],
+        },
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
@@ -921,6 +1196,10 @@ def main() -> int:
         "source": "kafkabalancer_tpu_torch/csrc/pallas_session.cu",
         "replaces": "kafkabalancer_tpu/solvers/pallas_session.py:83",
         "launches": b2_launches,
+        "launches_by_path": {
+            "3b: -fused -fused-engine=pallas -fused-batch=100": b2_launches,
+            "6: headline, -fused-engine=pallas": headline["pallas"][1],
+        },
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],
         "plain_ms": b2_t["plain_ms"],

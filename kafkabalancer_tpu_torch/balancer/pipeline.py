@@ -8,15 +8,17 @@ reassignment** (balancer.go:57-60). A step failure raises
 step proposes anything, an empty plan is returned (balancer.go:63-64).
 
 Solver selection (``cfg.solver``) swaps only the optimization tail
-(MoveLeaders/MoveNonLeaders — the reference's hot loop). This package
-runs the greedy host tail; the vectorized and beam tails are not ported
-yet. Validation, defaults and repairs are identical cheap host-side
-steps in every backend.
+(MoveLeaders/MoveNonLeaders — the reference's hot loop): ``tpu`` scores
+every candidate move on the device (``solvers/tpu.py``, on the device
+``balance`` is given) instead of the O(P*R*B^2) scan, with plans
+byte-identical to the greedy tail; the beam tail is not ported yet.
+Validation, defaults and repairs are identical cheap host-side steps in
+every backend.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 from kafkabalancer_tpu_torch.balancer import steps as _s
 from kafkabalancer_tpu_torch.models import PartitionList, RebalanceConfig
@@ -41,16 +43,26 @@ _HEAD_REPAIR: List[Tuple[str, StepFn]] = [
 _COMMON_HEAD: List[Tuple[str, StepFn]] = _HEAD_VALIDATE + _HEAD_REPAIR
 
 
-def _steps_for(cfg: RebalanceConfig) -> List[Tuple[str, StepFn]]:
+def _steps_for(
+    cfg: RebalanceConfig, device: Any = None
+) -> List[Tuple[str, StepFn]]:
     solver = getattr(cfg, "solver", "greedy") or "greedy"
     if solver == "greedy":
         tail: List[Tuple[str, StepFn]] = [
             ("MoveLeaders", _s.move_leaders),
             ("MoveNonLeaders", _s.move_non_leaders),
         ]
-    elif solver in ("tpu", "beam"):
-        # the vectorized and beam solvers are not ported yet (ROADMAP.md
-        # queue A, items 3 and 5)
+    elif solver == "tpu":
+        from kafkabalancer_tpu_torch.solvers import tpu
+
+        tail = [
+            ("MoveLeaders",
+             lambda pl, cfg: tpu.tpu_move_leaders(pl, cfg, device)),
+            ("MoveNonLeaders",
+             lambda pl, cfg: tpu.tpu_move_non_leaders(pl, cfg, device)),
+        ]
+    elif solver == "beam":
+        # the beam solver is not ported yet (ROADMAP.md queue A)
         raise _s.BalanceError(f"solver {solver!r} is not yet ported")
     else:
         raise _s.BalanceError(f"unknown solver {solver!r}")
@@ -61,14 +73,17 @@ def balance(
     pl: PartitionList,
     cfg: RebalanceConfig,
     log: Optional[Callable[[str], None]] = None,
+    *,
+    device: Any = None,
 ) -> PartitionList:
     """Run the step pipeline once; reference ``Balance`` (balancer.go:49-65).
 
     Raises :class:`BalanceError` with a ``"<StepName>: <reason>"`` message on
     failure; otherwise returns a plan with exactly one proposed reassignment,
-    or an empty plan when the assignment has converged.
+    or an empty plan when the assignment has converged. ``device`` is
+    where ``-solver=tpu`` scores (CUDA by default).
     """
-    for name, step in _steps_for(cfg):
+    for name, step in _steps_for(cfg, device):
         try:
             ppl = step(pl, cfg)
         except _s.BalanceError as exc:

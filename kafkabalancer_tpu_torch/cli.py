@@ -12,10 +12,17 @@ the exit-code contract are the reference's:
 Planning paths of this package:
 
 - the default ``-solver=greedy`` host pipeline (no torch import);
-- ``-fused`` (with ``-fused-batch`` and ``-fused-engine=auto|xla``): the
-  device converge session of ``solvers/scan.py`` with the hand-written
-  scoring kernel, on CUDA. Without a GPU ``-fused`` exits 3; it never
-  plans on the CPU by itself (``run(..., device="cpu")`` asks for that).
+- ``-solver=tpu``: the same pipeline with the per-move window scorer of
+  ``solvers/tpu.py`` on the device, byte-identical to greedy;
+- ``-fused`` (with ``-fused-batch`` and ``-fused-engine``): the device
+  converge session of ``solvers/scan.py`` with the hand-written kernels;
+  ``-fused-polish`` adds the pair-swap alternation (``solvers/polish.py``)
+  and ``-rebalance-leader`` runs the fused leader session
+  (``solvers/leader.py``).
+
+``-fused`` and ``-solver=tpu`` run on CUDA. Without a GPU they exit 3;
+they never plan on the CPU by themselves (``run(..., device="cpu")`` asks
+for that).
 
 Every other flag of the reference is parsed; a flag whose feature is not
 ported yet exits 3 with a one-line message naming its ROADMAP.md item
@@ -102,8 +109,6 @@ def apply_assignment(pl: PartitionList, changed: Partition) -> Partition:
 _SERVING = "A7 (serving)"
 _EXPORTERS = "A1 (telemetry exporters)"
 _NOT_PORTED = [
-    ("fused-polish", "bool", False, "Fused mode: pair-swap polish phases",
-     "A5 (polish)"),
     ("fused-shard", "bool", False, "Fused mode: shard the session over "
      "devices", "A6 (multi-GPU)"),
     ("shard-scale", "bool", False, "Fused-shard scale tier", "A6 (multi-GPU)"),
@@ -167,8 +172,8 @@ _NOT_PORTED = [
 def run(i, o, e, args: List[str], *, device: Any = None) -> int:
     """Testable CLI body; reference ``run`` (kafkabalancer.go:72-242).
 
-    ``device`` pins the ``-fused`` session's device (``"cpu"`` in the
-    tests); by default it is CUDA."""
+    ``device`` pins the device of ``-fused`` and ``-solver=tpu``
+    (``"cpu"`` in the tests); by default it is CUDA."""
     be = BufferingWriter(e)
     logger = Logger(be)
     obs.begin_invocation()
@@ -234,8 +239,9 @@ def _run_impl(
         f_solver = f.string(
             "solver",
             "greedy",
-            "Optimization backend: greedy (reference parity); tpu and beam "
-            "are not ported yet",
+            "Optimization backend: greedy (reference parity), tpu (the "
+            "per-move window scorer on the GPU, byte-identical to greedy); "
+            "beam is not ported yet",
         )
         f_beam_width = f.int(
             "beam-width", defaults.beam_width,
@@ -276,6 +282,13 @@ def _run_impl(
             "the hand-written scoring kernel; pallas runs the whole session "
             "as one kernel launch per chunk, pallas-interpret that kernel's "
             "plain torch version)",
+        )
+        f_polish = f.bool(
+            "fused-polish",
+            False,
+            "Fused mode: alternate pair-swap polish phases with the move "
+            "session (compound two-replica exchanges escape single-move "
+            "local optima; an extension beyond the reference)",
         )
         f_pprof_path = f.string(
             "pprof-path",
@@ -350,21 +363,12 @@ def _run_impl(
                     log(f"unknown fused engine {f_engine.value!r}")
                     usage()
                     return 3
-                for what, item, given in (
-                    ("-rebalance-leader with -fused",
-                     "A5 (fused leader session)", f_rebalance_leader.value),
-                    ("-anti-colocation with -fused",
-                     "A4 (anti-colocation session)", f_anti_coloc.value > 0),
-                ):
-                    if given:
-                        log(f"{what} is not yet ported (ROADMAP.md {item})")
-                        return 3
-            elif f_solver.value in ("tpu", "beam"):
-                item = "A3" if f_solver.value == "tpu" else "A5"
-                log(
-                    f"-solver={f_solver.value} is not yet ported "
-                    f"(ROADMAP.md {item})"
-                )
+                if f_anti_coloc.value > 0:
+                    log("-anti-colocation with -fused is not yet ported "
+                        "(ROADMAP.md A4 (anti-colocation session))")
+                    return 3
+            elif f_solver.value == "beam":
+                log("-solver=beam is not yet ported (ROADMAP.md A5)")
                 return 3
 
         topics = [t for t in f_topics.value.split(",") if len(t) >= 1]
@@ -429,28 +433,44 @@ def _run_impl(
         c_partition: Optional[Partition] = None
         r = f_max.value
 
-        if f_fused.value:
-            # whole-session device planning (solvers/scan.py) instead of the
-            # per-move host loop; consumes the budget so the loop below is
-            # skipped and the shared output tail applies unchanged
-            from kafkabalancer_tpu_torch.solvers.scan import plan, resolve_device
+        dev = None
+        if f_fused.value or f_solver.value == "tpu":
+            from kafkabalancer_tpu_torch.solvers.scan import resolve_device
 
             try:
                 dev = resolve_device(device)
             except RuntimeError as exc:
-                log(f"-fused needs a CUDA GPU: {exc}")
+                what = "-fused" if f_fused.value else "-solver=tpu"
+                log(f"{what} needs a CUDA GPU: {exc}")
                 return 3
+
+        if f_fused.value:
+            # whole-session device planning (solvers/scan.py) instead of the
+            # per-move host loop; consumes the budget so the loop below is
+            # skipped and the shared output tail applies unchanged
+            from kafkabalancer_tpu_torch.solvers.scan import plan
+
             if f_solver.value != defaults.solver:
                 log(
                     f"-fused implies the tpu session backend; ignoring "
                     f"-solver={f_solver.value}"
                 )
+            if f_polish.value and f_rebalance_leader.value:
+                log(
+                    "-fused-polish does not apply to the -rebalance-leader "
+                    "session (leadership redistribution has no swap "
+                    "neighborhood); ignoring it"
+                )
             try:
-                with obs.span("plan", mode="fused", engine=f_engine.value):
+                with obs.span(
+                    "plan", mode="fused", engine=f_engine.value,
+                    polish=f_polish.value,
+                ):
                     opl = plan(
                         pl, cfg, r,
                         batch=max(1, f_batch.value),
                         engine=f_engine.value,
+                        polish=f_polish.value,
                         device=dev,
                     )
             except BalanceError as exc:
@@ -479,7 +499,7 @@ def _run_impl(
         ):
             while r > 0:
                 try:
-                    ppl = balance(pl, cfg, log=log)
+                    ppl = balance(pl, cfg, log=log, device=dev)
                 except BalanceError as exc:
                     log(f"failed optimizing distribution: {exc}")
                     return 3

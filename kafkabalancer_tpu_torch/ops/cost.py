@@ -67,6 +67,45 @@ def ordered_sum(x: Tensor, dim: int = 0) -> Tensor:
     return acc
 
 
+# block width of the reference's float prefix sums (see ordered_cumsum)
+_SCAN_BLOCK = 16
+
+
+def ordered_cumsum(x: Tensor, dim: int = 0) -> Tensor:
+    """Inclusive prefix sum over ``dim`` in the reference's order.
+
+    The reference's float ``cumsum`` is a reduce-window that its CPU
+    compiler rewrites into a blocked scan: the axis is zero-padded at the
+    end to a multiple of 16, each block of 16 is scanned left to right
+    from zero, the blocks' totals are scanned the same way (recursively),
+    and each block adds the sum of the blocks before it. Up to 16
+    elements that is the plain left-to-right scan; past that
+    ``torch.cumsum`` gives other bits. Integer prefix sums are exact in
+    any order and need no copy of this.
+    """
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    rest = x.shape[1:]
+    if n <= _SCAN_BLOCK:
+        out = []
+        acc = torch.zeros_like(x[0]) if n else None
+        for j in range(n):
+            acc = acc + x[j]
+            out.append(acc)
+        res = torch.stack(out) if n else x.clone()
+        return res.movedim(0, dim)
+    nblk = -(-n // _SCAN_BLOCK)
+    pad = nblk * _SCAN_BLOCK - n
+    xb = torch.cat([x, x.new_zeros((pad,) + rest)]).reshape(
+        (nblk, _SCAN_BLOCK) + rest
+    )
+    inner = ordered_cumsum(xb, 1)  # [nblk, 16, ...]
+    outer = ordered_cumsum(inner[:, -1], 0)  # inclusive scan of the totals
+    carry = torch.cat([outer.new_zeros((1,) + rest), outer[:-1]])
+    res = (inner + carry[:, None]).reshape((nblk * _SCAN_BLOCK,) + rest)[:n]
+    return res.movedim(0, dim)
+
+
 def scatter_add_(dst: Tensor, idx: Tensor, src: Tensor) -> Tensor:
     """``dst[idx[i]] += src[i]`` in place, deterministically.
 

@@ -25,7 +25,12 @@ sharing this module's candidate pool (:func:`batch_pool`) and acceptance
 
 ``plan`` wraps the session like the reference's: host repairs first,
 then chunked sessions that re-encode the live assignment between chunks,
-then the move log is replayed onto the partition objects.
+then the move log is replayed onto the partition objects. Two other
+sessions run under the same wrapper: ``polish=True`` alternates move
+sessions with pair-swap phases (``solvers/polish.py``), and
+``rebalance_leaders`` runs the fused leader session
+(``solvers/leader.py``), whose leadership exchanges the log carries as
+``leader.SWAP_SLOT`` entries.
 """
 
 from __future__ import annotations
@@ -258,6 +263,97 @@ def batch_pool(
     return vals, p, slot, s_, t, w_k, avg, su
 
 
+def single_move(
+    loads: Tensor,
+    rep: Tensor,
+    mem: Tensor,
+    allowed: Optional[Tensor],
+    bvalid: Tensor,
+    nb: Tensor,
+    weights: Tensor,
+    nrep_cur: Tensor,
+    nrep_tgt: Tensor,
+    pvalid: Tensor,
+    universe_valid: Tensor,
+    min_replicas: int,
+    mu: Tensor,
+    *,
+    allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """The strict one-move-at-a-time greedy step over the full ``[P, R,
+    B]`` candidate tensor, leader moves first (balancer.go:42-43): the
+    body of :func:`session` at ``batch == 1`` and the move step of the
+    leader session (``solvers/leader.py``). Returns ``(accept, p, slot,
+    s_dense, t_dense)`` as 0-d tensors; the caller reads ``accept``."""
+    P, R = rep.shape
+    B = loads.shape[0]
+    inf = float("inf")
+    # (load, ID) target ordering for reference-style tie-breaks
+    _, perm, rank_of = rank_brokers(loads, bvalid)
+    alw = universe_valid[None, :].expand(P, B) if allowed is None else allowed
+    u, su = move_candidate_scores(
+        loads, rep, alw[:, perm], mem[:, perm], bvalid, bvalid[perm],
+        perm, rank_of, weights, nrep_cur, nrep_tgt, pvalid, nb, min_replicas,
+    )
+    slot_iota = torch.arange(R, device=loads.device)
+
+    def best(mask_slots: Tensor) -> Tuple[Tensor, Tensor]:
+        flat = torch.where(
+            mask_slots[None, :, None], u, torch.full_like(u, inf)
+        ).reshape(-1)
+        i = flat.argmin()
+        return flat[i], i
+
+    fol_u, fol_i = best(slot_iota >= 1)
+    accept = (fol_u < su - mu) & (fol_u < su)
+    chosen = fol_i
+    if allow_leader:
+        lead_u, lead_i = best(slot_iota == 0)
+        accept_lead = (lead_u < su - mu) & (lead_u < su)
+        chosen = torch.where(accept_lead, lead_i, fol_i)
+        accept = accept | accept_lead
+    p, rem = chosen // (R * B), chosen % (R * B)
+    slot, t_rank = rem // B, rem % B
+    return accept, p, slot, rep[p, slot].long(), perm[t_rank]
+
+
+def commit_single(
+    loads: Tensor, rep: Tensor, mem: Tensor, bcount: Tensor, weights: Tensor,
+    nrep_cur: Tensor, ncons: Tensor, p: Tensor, slot: Tensor, s_dense: Tensor,
+    t_dense: Tensor,
+) -> None:
+    """Apply one :func:`single_move` move to the session state in place;
+    the leader premium travels with slot 0 (utils.go:96-101)."""
+    delta = torch.where(
+        slot == 0, weights[p] * (nrep_cur[p].to(loads.dtype) + ncons[p]),
+        weights[p],
+    )
+    loads[s_dense] -= delta
+    loads[t_dense] += delta
+    rep[p, slot] = t_dense.to(rep.dtype)
+    mem[p, s_dense] = False
+    mem[p, t_dense] = True
+    bcount[s_dense] -= 1
+    bcount[t_dense] += 1
+
+
+def member_from(
+    replicas: Tensor, nrep_cur: Tensor, pvalid: Tensor, B: int
+) -> Tensor:
+    """The ``[P, B]`` membership mask of a replica matrix (valid slots of
+    valid partitions)."""
+    P, R = replicas.shape
+    slot = torch.arange(R, device=replicas.device)[None, :]
+    valid = (slot < nrep_cur[:, None]) & pvalid[:, None]
+    flat = torch.where(
+        valid, torch.arange(P, device=replicas.device)[:, None] * B
+        + replicas.long(), P * B,
+    )
+    mem = torch.zeros(P * B + 1, dtype=torch.bool, device=replicas.device)
+    mem[flat.reshape(-1)] = True
+    return mem[: P * B].view(P, B)
+
+
 def session(
     loads: Tensor,
     replicas: Tensor,
@@ -322,19 +418,9 @@ def session(
     # move log rows p | slot | src | tgt, trash column at max_moves
     log = torch.full((4, max_moves + 1), -1, dtype=torch.long, device=dev)
 
-    slot_iota = torch.arange(R, device=dev)[None, :]
-
     def table() -> Tuple[Tensor, Tensor]:
         bvalid = (always_valid | (bcount > 0)) & universe_valid
         return bvalid, bvalid.sum().to(dtype)
-
-    def applied_delta(p: Tensor, slot: Tensor) -> Tensor:
-        # applied load delta: the leader premium travels with slot 0
-        # (utils.go:96-101)
-        return torch.where(
-            slot == 0, weights[p] * (nrep_cur[p].to(dtype) + ncons[p]),
-            weights[p],
-        )
 
     cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
     minrep = scalar(min_replicas, dtype, dev)
@@ -368,45 +454,17 @@ def session(
 
     def step_single(n: int) -> int:
         bvalid, nb = table()
-        # (load, ID) target ordering for reference-style tie-breaks
-        _, perm, rank_of = rank_brokers(loads, bvalid)
-        alw = universe_valid[None, :].expand(P, B) if allowed is None else allowed
-        u, su = move_candidate_scores(
-            loads, rep, alw[:, perm], mem[:, perm], bvalid, bvalid[perm],
-            perm, rank_of, weights, nrep_cur, nrep_tgt, pvalid, nb,
-            min_replicas,
+        accept, p, slot, s_dense, t_dense = single_move(
+            loads, rep, mem, allowed, bvalid, nb, weights, nrep_cur,
+            nrep_tgt, pvalid, universe_valid, min_replicas, mu,
+            allow_leader=allow_leader,
         )
-
-        def best(mask_slots: Tensor) -> Tuple[Tensor, Tensor]:
-            flat = torch.where(
-                mask_slots[None, :, None], u, torch.full_like(u, inf)
-            ).reshape(-1)
-            i = flat.argmin()
-            return flat[i], i
-
-        fol_u, fol_i = best(slot_iota[0] >= 1)
-        accept = (fol_u < su - mu) & (fol_u < su)
-        chosen = fol_i
-        if allow_leader:
-            # MoveLeaders before MoveNonLeaders (balancer.go:42-43)
-            lead_u, lead_i = best(slot_iota[0] == 0)
-            accept_lead = (lead_u < su - mu) & (lead_u < su)
-            chosen = torch.where(accept_lead, lead_i, fol_i)
-            accept = accept | accept_lead
         if not bool(accept):
             return 0
-        p, rem = chosen // (R * B), chosen % (R * B)
-        slot, t_rank = rem // B, rem % B
-        t_dense = perm[t_rank]
-        s_dense = rep[p, slot].long()
-        delta = applied_delta(p, slot)
-        loads[s_dense] -= delta
-        loads[t_dense] += delta
-        rep[p, slot] = t_dense.to(rep.dtype)
-        mem[p, s_dense] = False
-        mem[p, t_dense] = True
-        bcount[s_dense] -= 1
-        bcount[t_dense] += 1
+        commit_single(
+            loads, rep, mem, bcount, weights, nrep_cur, ncons, p, slot,
+            s_dense, t_dense,
+        )
         log[:, n] = torch.stack([p, slot, s_dense, t_dense])
         return 1
 
@@ -447,27 +505,64 @@ def _run_chunk(
     device: torch.device,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]],
     engine: str = "xla",
+    mode: str = "move",
 ) -> "np.ndarray":
     """One session over ``dp`` on ``device``; returns the packed move log
-    ``[move_p | move_slot | move_tgt | n]`` as one host array. ``engine``
-    ``"xla"`` runs :func:`session`; ``"pallas"`` the whole-session kernel
+    ``[move_p | move_slot | move_tgt | n]`` as one host array.
+
+    ``mode`` ``"move"`` runs the move session: with ``engine`` ``"xla"``
+    :func:`session`; ``"pallas"`` the whole-session kernel
     (``solvers/pallas_session.py``, its plain version on CPU tensors);
-    ``"pallas-interpret"`` that kernel's plain version on ``device``."""
+    ``"pallas-interpret"`` that kernel's plain version on ``device``.
+    ``"polish"`` runs the move/swap alternation of ``solvers/polish.py``
+    (log length ``2 * max_moves``) and ``"leader"`` the rebalance-leaders
+    session of ``solvers/leader.py``."""
     all_allowed = all_allowed_of(dp)
     d = to_device(dp, device, dtype, all_allowed=all_allowed)
     B = dp.bvalid.shape[0]
     loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons, B)
     max_moves = next_bucket(chunk, 128)
     always = torch.from_numpy(_cfg_broker_mask(dp, cfg)).to(device)
+    common = (
+        d.weights, d.nrep_cur, d.nrep_tgt, d.ncons, d.pvalid, always,
+        d.bvalid, cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+    )
     obs.metrics.count("solver.chunks")
     with obs.span(
-        "solver.dispatch_chunk", max_moves=max_moves, batch=batch, engine=engine
+        "solver.dispatch_chunk", max_moves=max_moves, batch=batch,
+        engine=engine, mode=mode,
     ):
-        if engine == "xla":
+        if mode == "polish":
+            from kafkabalancer_tpu_torch.solvers.polish import (
+                converge_session,
+                entry_table,
+            )
+
+            ew, ep, er, evalid = entry_table(
+                dp, cfg.min_replicas_for_rebalancing
+            )
+            packed = converge_session(
+                loads, d.replicas, d.allowed, *common,
+                torch.from_numpy(ew).to(device, dtype),
+                torch.from_numpy(ep).to(device, torch.long),
+                torch.from_numpy(er).to(device, torch.long),
+                torch.from_numpy(evalid).to(device),
+                max_moves=max_moves, allow_leader=cfg.allow_leader_rebalancing,
+                batch=max(1, batch), engine=engine, all_allowed=all_allowed,
+                scorer=scorer,
+            )
+            return packed.cpu().numpy()
+        if mode == "leader":
+            from kafkabalancer_tpu_torch.solvers.leader import leader_session
+
+            _rep, _loads, n, mp, mslot, mtgt = leader_session(
+                loads, d.replicas, d.member, d.allowed, *common,
+                max_moves=max_moves, allow_leader=cfg.allow_leader_rebalancing,
+                batch=max(1, batch),
+            )
+        elif engine == "xla":
             _rep, _loads, n, mp, mslot, _msrc, mtgt, _su = session(
-                loads, d.replicas, d.member, d.allowed, d.weights, d.nrep_cur,
-                d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid,
-                cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+                loads, d.replicas, d.member, d.allowed, *common,
                 max_moves=max_moves,
                 allow_leader=cfg.allow_leader_rebalancing, batch=max(1, batch),
                 scorer=scorer,
@@ -483,9 +578,7 @@ def _run_chunk(
                 else pallas_session
             )
             _rep, _loads, n, mp, mslot, _msrc, mtgt = run(
-                loads, d.replicas, None, d.allowed, d.weights, d.nrep_cur,
-                d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid,
-                cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+                loads, d.replicas, None, d.allowed, *common,
                 max(1, batch), DEFAULT_CHURN_GATE, max_moves=max_moves,
                 allow_leader=cfg.allow_leader_rebalancing,
                 all_allowed=all_allowed,
@@ -502,6 +595,8 @@ def _superseded_mask(mp: Any, mslot: Any) -> "np.ndarray":
     (kafkabalancer.go:177-221), so the intermediate write is pure churn.
     Dropping is exact only within a consecutive run of moves on the same
     (partition, slot): nothing reads the partition's state in between.
+    Leadership exchanges (slot == ``leader.SWAP_SLOT``) read positions
+    through ``replicas.index``: they are never dropped and break runs.
     """
     n = len(mp)
     keep = np.ones(n, dtype=bool)
@@ -522,8 +617,14 @@ def _decode_packed(
     """Replay a packed ``[move_p | move_slot | move_tgt | n]`` move log
     onto the live partitions, appending each to ``opl`` in move order
     (the CLI main-loop output contract, kafkabalancer.go:177-221).
-    Returns the move count CONSUMED from the session budget (the raw
-    commit count, even when ``drop_superseded`` elides emissions)."""
+
+    A slot of ``leader.SWAP_SLOT`` is a leadership exchange (``replacepl``
+    swap branch, utils.go:181-188): the target broker, already a
+    follower, trades positions with the leader. Returns the move count
+    CONSUMED from the session budget (the raw commit count, even when
+    ``drop_superseded`` elides emissions)."""
+    from kafkabalancer_tpu_torch.solvers.leader import SWAP_SLOT
+
     n = int(packed[-1])
     ml = (packed.shape[0] - 1) // 3
     mp = packed[:n]
@@ -537,11 +638,16 @@ def _decode_packed(
         tgt = int(dp.broker_ids[int(mtgt[i])])
         if keep is not None and not keep[i]:
             continue
-        if keep is not None and part.replicas[slot] == tgt:
+        if keep is not None and slot >= 0 and part.replicas[slot] == tgt:
             # a collapsed run whose final write restores the original
             # broker is a net no-op
             continue
-        part.replicas[slot] = tgt
+        if slot == SWAP_SLOT:
+            j = part.replicas.index(tgt)
+            part.replicas[j] = part.replicas[0]
+            part.replicas[0] = tgt
+        else:
+            part.replicas[slot] = tgt
         opl.append(part)
         emitted += 1
     obs.metrics.count("solver.moves_committed", n)
@@ -566,11 +672,19 @@ def _repairs_possible(pl: PartitionList, cfg: RebalanceConfig) -> bool:
 
 
 def _settle_head(
-    pl: PartitionList, cfg: RebalanceConfig, budget: int
+    pl: PartitionList,
+    cfg: RebalanceConfig,
+    budget: int,
+    include_reassign_leaders: bool = True,
 ) -> Tuple[List[Partition], int]:
     """Run the pipeline head (validations, defaults, repairs) until no step
     fires, applying each repair like the CLI loop does. Returns the applied
-    live partitions (each counts against the reassignment budget)."""
+    live partitions (each counts against the reassignment budget).
+
+    ``include_reassign_leaders=False`` settles only the repair steps that
+    precede ``ReassignLeaders`` in the pipeline order: the fused leader
+    session (``solvers/leader.py``) replays that step on the device, and
+    repairs strictly precede it (balancer.go:34-44)."""
     from kafkabalancer_tpu_torch.balancer.pipeline import _HEAD_VALIDATE
     from kafkabalancer_tpu_torch.cli import apply_assignment
 
@@ -578,13 +692,19 @@ def _settle_head(
     # the repair loop is skipped entirely when no repair can fire
     for _name, step in _HEAD_VALIDATE:
         step(pl, cfg)
-    if not cfg.rebalance_leaders and not _repairs_possible(pl, cfg):
+    leaders_live = include_reassign_leaders and cfg.rebalance_leaders
+    if not leaders_live and not _repairs_possible(pl, cfg):
         return [], budget
 
+    head = (
+        _COMMON_HEAD
+        if include_reassign_leaders
+        else [s for s in _COMMON_HEAD if s[0] != "ReassignLeaders"]
+    )
     out: List[Partition] = []
     while budget > 0:
         fired = None
-        for _name, step in _COMMON_HEAD:
+        for _name, step in head:
             fired = step(pl, cfg)
             if fired is not None:
                 break
@@ -603,7 +723,9 @@ def plan(
     dtype: Any = None,
     batch: int = 1,
     engine: str = "auto",
+    polish: bool = False,
     *,
+    chunk_moves: Optional[int] = None,
     device: Any = None,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
 ) -> PartitionList:
@@ -620,7 +742,15 @@ def plan(
     whole-session kernel (``solvers/pallas_session.py``: float32 only,
     the pooled batched selection even at ``batch=1``, one launch per
     chunk), and ``pallas-interpret`` that kernel's plain version on
-    ``device``. ``scorer`` is passed to :func:`session`.
+    ``device``. ``scorer`` is passed to every :func:`session`.
+
+    ``polish=True`` alternates move phases with pair-swap and (with
+    ``allow_leader``) leadership-shuffle phases until neither commits
+    (``solvers/polish.py``); with a ``pallas`` engine the whole-session
+    kernel runs once up front. With ``rebalance_leaders`` the whole
+    Balance loop runs as the fused leader session (``solvers/leader.py``;
+    ``engine`` and ``polish`` do not apply). ``chunk_moves`` overrides
+    the per-session move budget (:func:`auto_chunk_moves`).
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
@@ -628,14 +758,21 @@ def plan(
     opl = empty_partition_list()
     if max_reassign <= 0:
         return opl
-    if cfg.rebalance_leaders:
-        raise BalanceError(
-            "the fused leader session (rebalance_leaders) is not yet ported"
-        )
-    if cfg.anti_colocation and batch > 1:
+    if (
+        cfg.anti_colocation and batch > 1 and not cfg.rebalance_leaders
+        and engine == "xla"
+    ):
         raise BalanceError("the anti-colocation session is not yet ported")
     device = resolve_device(device)
-    chunk_moves = auto_chunk_moves(len(pl.partitions or []))
+    if chunk_moves is None:
+        chunk_moves = auto_chunk_moves(len(pl.partitions or []))
+    chunk_moves = max(1, min(chunk_moves, 1 << 20))
+
+    if cfg.rebalance_leaders:
+        return _leader_plan(
+            pl, cfg, max_reassign, dtype, chunk_moves, opl, batch,
+            device=device,
+        )
 
     with obs.span("settle"):
         repaired, budget = _settle_head(pl, cfg, max_reassign)
@@ -655,7 +792,8 @@ def plan(
         chunk = min(remaining, chunk_moves)
         try:
             packed = _run_chunk(
-                dp, cfg, chunk, dtype, batch, device, scorer, engine
+                dp, cfg, chunk, dtype, batch, device, scorer, engine,
+                mode="polish" if polish else "move",
             )
         except (RuntimeError, ValueError) as exc:
             if not use_kernel:
@@ -663,17 +801,91 @@ def plan(
             # a kernel that does not build, launch or take these shapes is
             # a planning failure (CLI exit 3); nothing falls back
             raise BalanceError(f"{engine} engine failed ({exc})") from exc
-        # neither the batched mode nor the whole-session kernel (pooled
-        # selection at any batch) is the batch=1 parity trajectory, so
-        # their superseded writes elide
+        # polish interleaves swap and shuffle phases, and neither the
+        # batched mode nor the whole-session kernel (pooled selection at
+        # any batch) is the batch=1 parity trajectory: their superseded
+        # writes elide
         n = _decode_packed(
-            packed, dp, opl, drop_superseded=batch > 1 or use_kernel
+            packed, dp, opl, drop_superseded=polish or batch > 1 or use_kernel
         )
         remaining -= n
         if n < chunk:
             break
     _note_session_outcome(opl, remaining)
     return opl
+
+
+def _leader_plan(
+    pl: PartitionList,
+    cfg: RebalanceConfig,
+    max_reassign: int,
+    dtype: Any,
+    chunk_moves: int,
+    opl: PartitionList,
+    batch: int = 1,
+    *,
+    device: torch.device,
+) -> PartitionList:
+    """Fused ``rebalance_leaders`` planning: host repairs (strictly before
+    ReassignLeaders in the pipeline order), then the device Balance loop
+    of ``solvers/leader.py``, chunked and decoded like the move sessions.
+    ``batch > 1`` selects the batched-transfer extension; ``batch=1``
+    replays the reference trajectory."""
+    with obs.span("settle"):
+        repaired, budget = _settle_head(
+            pl, cfg, max_reassign, include_reassign_leaders=False
+        )
+    opl.append(*repaired)
+    if dtype is None:
+        dtype = default_dtype(device)
+
+    remaining = budget
+    while remaining > 0:
+        with obs.span("tensorize"):
+            dp = tensorize(pl, cfg)
+        chunk = min(remaining, chunk_moves)
+        packed = _run_chunk(
+            dp, cfg, chunk, dtype, batch, device, None, mode="leader"
+        )
+        n = _decode_packed(packed, dp, opl, drop_superseded=batch > 1)
+        remaining -= n
+        if n < chunk:
+            break
+    _note_leader_outcome(pl, cfg, opl, remaining)
+    return opl
+
+
+def _note_leader_outcome(
+    pl: PartitionList, cfg: RebalanceConfig, opl: PartitionList,
+    remaining: int,
+) -> None:
+    """Outcome note for the fused leader session (the reference's
+    ``distributeLeaders`` gate, steps.go:249-253: it bails outright when
+    the total unbalance is below ``min_unbalance``)."""
+    if opl.partitions:
+        convergence.note_outcome(
+            "budget_exhausted" if remaining <= 0 else "converged"
+        )
+        return
+    from kafkabalancer_tpu_torch.balancer.costmodel import (
+        get_bl,
+        get_broker_load,
+        get_unbalance_bl,
+    )
+
+    loads = get_broker_load(pl)
+    for bid in cfg.brokers or []:
+        if bid not in loads:
+            loads[bid] = 0.0
+    su = get_unbalance_bl(get_bl(loads))
+    if su != su:  # NaN objective (all-zero loads): Go's no-candidate exit
+        convergence.note_outcome("already_balanced", unbalance=su)
+    elif su < cfg.min_unbalance:
+        convergence.note_outcome(
+            "below_threshold", unbalance=su, min_unbalance=cfg.min_unbalance,
+        )
+    else:
+        convergence.note_outcome("no_feasible_candidate", unbalance=su)
 
 
 def _note_session_outcome(opl: PartitionList, remaining: int) -> None:

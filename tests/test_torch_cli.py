@@ -6,12 +6,16 @@ tests/test_cli.py and the 16+ table cases of tests/test_balancer.py — and
 must return the same exit code and write the same stdout, for the greedy
 pipeline and for ``-fused -fused-batch=4`` (the port on the CPU via
 ``device="cpu"``, the reference at float64 as tests/conftest.py sets it),
-and with ``-fused-engine=pallas`` against the reference's
-``-fused-engine=pallas-interpret`` (both at float32).
+with ``-fused-engine=pallas`` against the reference's
+``-fused-engine=pallas-interpret`` (both at float32), and for
+``-fused -fused-polish`` (with and without ``-allow-leader``, batch 1, 4
+and the default), ``-fused -rebalance-leader`` (batch 1 and 4) and
+``-solver=tpu`` over the golden inputs.
 
 Also pinned here: the port imports neither jax nor the JAX package
-(subprocess check), ``-fused`` without a GPU exits 3, and flags whose
-feature is not ported exit 3 naming their ROADMAP.md item.
+(subprocess check), ``-fused``, ``-fused-polish``, ``-fused
+-rebalance-leader`` and ``-solver=tpu`` without a GPU exit 3, and flags
+whose feature is not ported exit 3 naming their ROADMAP.md item.
 """
 
 import io
@@ -132,6 +136,42 @@ def test_golden_cli_inputs_whole_session_kernel(idx):
     assert got == ref
 
 
+# flag sets of the paths ported after the first slice; the batch=1 leader
+# session with the default -complete-partition loops forever in both
+# packages on inputs whose budget it exhausts (ROADMAP.md C), so that set
+# turns the extension off
+NEW_PATHS = {
+    "polish": ["-fused", "-fused-polish"],
+    "polish-b4": ["-fused", "-fused-polish", "-fused-batch=4"],
+    "polish-b1": ["-fused", "-fused-polish", "-fused-batch=1"],
+    "polish-leader": ["-fused", "-fused-polish", "-allow-leader"],
+    "polish-leader-b4": ["-fused", "-fused-polish", "-allow-leader",
+                         "-fused-batch=4"],
+    "polish-leader-b1": ["-fused", "-fused-polish", "-allow-leader",
+                         "-fused-batch=1"],
+    "leader-b1": ["-fused", "-rebalance-leader", "-fused-batch=1",
+                  "-complete-partition=false"],
+    "leader-b4": ["-fused", "-rebalance-leader", "-fused-batch=4"],
+    "solver-tpu": ["-solver=tpu"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(NEW_PATHS))
+@pytest.mark.parametrize("idx", range(len(GOLDEN)))
+def test_golden_cli_inputs_new_paths(idx, path, monkeypatch):
+    """Same rc and stdout bytes as the reference CLI; ``-solver=tpu`` with
+    ``MIN_DEVICE_CANDIDATES`` at 0 in both packages, so every move takes
+    the device pass."""
+    from kafkabalancer_tpu.solvers import tpu as jtpu
+    from kafkabalancer_tpu_torch.solvers import tpu as ttpu
+
+    monkeypatch.setattr(jtpu, "MIN_DEVICE_CANDIDATES", 0)
+    monkeypatch.setattr(ttpu, "MIN_DEVICE_CANDIDATES", 0)
+    argv, stdin = GOLDEN[idx]
+    ref, got = both(argv + NEW_PATHS[path], stdin)
+    assert got == ref
+
+
 def jrun_out(argv, stdin):
     o, e = io.StringIO(), io.StringIO()
     return jrun(io.StringIO(stdin), o, e, ["kafkabalancer"] + argv), o.getvalue()
@@ -150,6 +190,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.solvers.scan\n"
         "import kafkabalancer_tpu_torch.parallel.shard_kernel\n"
         "import kafkabalancer_tpu_torch.solvers.pallas_session\n"
+        "import kafkabalancer_tpu_torch.solvers.polish\n"
+        "import kafkabalancer_tpu_torch.solvers.leader\n"
+        "import kafkabalancer_tpu_torch.solvers.tpu\n"
+        "import kafkabalancer_tpu_torch.balancer.pipeline\n"
         "import kafkabalancer_tpu_torch.ops.nvcc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
@@ -177,14 +221,67 @@ def test_fused_without_a_gpu_exits_3(monkeypatch):
 
 
 @pytest.mark.parametrize(
+    "flags,what",
+    [
+        (["-fused", "-fused-polish"], "-fused"),
+        (["-fused", "-fused-polish", "-fused-engine=pallas"], "-fused"),
+        (["-fused", "-rebalance-leader"], "-fused"),
+        (["-solver=tpu"], "-solver=tpu"),
+    ],
+)
+def test_new_paths_without_a_gpu_exit_3(monkeypatch, flags, what):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    o, e = io.StringIO(), io.StringIO()
+    rc = trun(
+        io.StringIO(fixture_text()), o, e,
+        ["kafkabalancer", "-input-json"] + flags,
+    )
+    assert rc == 3
+    assert f"{what} needs a CUDA GPU" in e.getvalue()
+    assert o.getvalue() == ""
+
+
+def test_whole_session_kernel_failure_under_polish_exits_3(monkeypatch):
+    """A failure of the whole-session kernel in the polish pre-phase is a
+    planning failure (exit 3), as with ``-fused-engine=pallas`` alone;
+    nothing falls back."""
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    def broken(*a, **k):
+        raise RuntimeError("pallas_session kernel launch failed: test")
+
+    monkeypatch.setattr(ps, "pallas_session", broken)
+    o, e = io.StringIO(), io.StringIO()
+    rc = trun(
+        io.StringIO(fixture_text()), o, e,
+        ["kafkabalancer", "-input-json", "-fused", "-fused-polish",
+         "-fused-engine=pallas"], device="cpu",
+    )
+    assert rc == 3
+    assert "pallas engine failed" in e.getvalue()
+    assert o.getvalue() == ""
+
+
+def test_polish_with_rebalance_leader_says_it_is_ignored():
+    o, e = io.StringIO(), io.StringIO()
+    rc = trun(
+        io.StringIO(fixture_text()), o, e,
+        ["kafkabalancer", "-input-json", "-fused", "-fused-polish",
+         "-rebalance-leader", "-fused-batch=4"], device="cpu",
+    )
+    assert rc == 0
+    assert "-fused-polish does not apply to the -rebalance-leader" in e.getvalue()
+
+
+@pytest.mark.parametrize(
     "flag,item",
     [
-        ("-fused-polish", "A5"),
+        ("-metrics-json=m.json", "A1"),
         ("-fused-shard", "A6"),
         ("-stats", "A1"),
         ("-explain=-", "A1"),
         ("-serve", "A7"),
-        ("-solver=tpu", "A3"),
+        ("-shard-scale", "A6"),
         ("-solver=beam", "A5"),
     ],
 )
@@ -200,7 +297,7 @@ def test_unported_flags_exit_3(flag, item):
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (["-rebalance-leader"], "A5"),
+        (["-fused-polish", "-anti-colocation=0.5"], "A4"),
         (["-anti-colocation=0.5"], "A4"),
     ],
 )

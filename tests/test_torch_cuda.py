@@ -363,3 +363,103 @@ def test_session_kernel_rejects_what_it_does_not_take(cuda_device, monkeypatch):
     bad[14] = 0  # batch
     with pytest.raises(ValueError):
         ps.pallas_session(*bad, **kw)
+
+
+def plan_moves(opl):
+    return [(p.topic, p.partition, tuple(p.replicas)) for p in opl.partitions]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_polish_with_the_kernel_matches_the_plain_scorer(
+    cuda_device, allow_leader, batch
+):
+    """``plan(polish=True)`` on the card: every move phase scores through
+    the scoring kernel (batched) and gives the plan of the same
+    alternation with its plain version."""
+    budget = 300 if batch == 1 else 100_000
+    sk.shard_score.launches = 0
+    a = scan.plan(synth_cluster(1500, 30, seed=21), cfg(allow_leader), budget,
+                  batch=batch, polish=True, device=cuda_device)
+    assert batch == 1 or sk.shard_score.launches > 0
+    b = scan.plan(synth_cluster(1500, 30, seed=21), cfg(allow_leader), budget,
+                  batch=batch, polish=True, device=cuda_device,
+                  scorer=sk.shard_score_plain)
+    assert plan_moves(a) and plan_moves(a) == plan_moves(b)
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_polish_with_the_session_kernel_matches_interpret(
+    cuda_device, allow_leader
+):
+    """``engine="pallas"`` under polish: one whole-session launch up front,
+    then the alternation; the same plan as with the kernel's plain
+    version (``pallas-interpret``)."""
+    ps.pallas_session.launches = 0
+    a = scan.plan(synth_cluster(1500, 30, seed=22), cfg(allow_leader), 100_000,
+                  batch=16, engine="pallas", polish=True, device=cuda_device)
+    assert ps.pallas_session.launches == 1
+    b = scan.plan(synth_cluster(1500, 30, seed=22), cfg(allow_leader), 100_000,
+                  batch=16, engine="pallas-interpret", polish=True,
+                  device=cuda_device)
+    assert plan_moves(a) and plan_moves(a) == plan_moves(b)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_leader_session_runs_on_the_card(cuda_device, batch):
+    c = cfg()
+    c.rebalance_leaders = True
+    pl = synth_cluster(1500, 30, seed=23)
+    opl = scan.plan(pl, c, 300, batch=batch, device=cuda_device)
+    assert plan_moves(opl)
+    for p in pl.partitions:
+        assert len(set(p.replicas)) == len(p.replicas)
+
+
+def test_solver_tpu_runs_on_the_card(cuda_device, monkeypatch):
+    """``-solver=tpu`` through the pipeline on the card: the device pass
+    runs and the session equals the greedy session."""
+    import copy
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.balancer import balance
+    from kafkabalancer_tpu_torch.cli import apply_assignment
+    from kafkabalancer_tpu_torch.solvers import tpu
+
+    monkeypatch.setattr(tpu, "MIN_DEVICE_CANDIDATES", 0)
+    pl = synth_cluster(400, 20, seed=24)
+    out = {}
+    obs.begin_invocation()
+    for solver, dev in (("greedy", None), ("tpu", cuda_device)):
+        c = cfg()
+        c.solver = solver
+        live = copy.deepcopy(pl)
+        got = []
+        for _ in range(5):
+            ppl = balance(live, c, device=dev)
+            if not len(ppl):
+                break
+            got += [tuple(apply_assignment(live, x).replicas) for x in ppl.partitions]
+        out[solver] = got
+    assert out["tpu"] and out["tpu"] == out["greedy"]
+    assert obs.REGISTRY.counter_get("solver.window_passes") >= len(out["tpu"])
+
+
+def test_searchsorted_on_the_card_takes_inf_and_nan_as_on_the_cpu(cuda_device):
+    ew = torch.tensor([0.5, 1, 1, 2, 3] + [float("inf")] * 3)
+    q = torch.tensor([float("nan"), float("inf"), -float("inf"), 1, 0.5, 2.5])
+    assert torch.equal(
+        torch.searchsorted(ew.to(cuda_device), q.to(cuda_device)).cpu(),
+        torch.searchsorted(ew, q),
+    )
+
+
+def test_polish_surfaces_the_session_kernel_limit(cuda_device):
+    """More than 1024 brokers: the whole-session kernel refuses, and the
+    polish pre-phase surfaces that as a planning failure (CLI exit 3);
+    nothing falls back."""
+    from kafkabalancer_tpu_torch.balancer import BalanceError
+
+    with pytest.raises(BalanceError, match="pallas engine failed"):
+        scan.plan(synth_cluster(3000, 1100, seed=25), cfg(), 1000, batch=16,
+                  engine="pallas", polish=True, device=cuda_device)

@@ -180,7 +180,7 @@ def test_unported_engines_and_modes_raise():
     from kafkabalancer_tpu_torch.balancer import BalanceError
 
     _, tc = cfgs()
-    tc.rebalance_leaders = True
+    tc.anti_colocation = 0.5
     with pytest.raises(BalanceError, match="not yet ported"):
         tscan.plan(tsynth(50, 6), tc, 10, batch=4, device="cpu")
     with pytest.raises(ValueError):
