@@ -70,8 +70,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``MIN_DEVICE_CANDIDATES``, so the device pass runs), then one move at
    10k x 100 with its device passes and re-scanned window rows.
 
+9. The JAX package's benchmark configuration 4b (``synth_cluster(10000,
+   100, rf=3, seed=42, weighted=True, zipf_topics=True)``, λ = 1e-3,
+   ``-min-unbalance=1e-6``): the scoring kernel's colocation variant on
+   the session's own first-iteration inputs (equal to the plain version,
+   timed, bound), then ``cli.run -fused -fused-batch=128 -allow-leader
+   -anti-colocation=0.001`` without and with ``-fused-polish`` and with
+   ``-fused-engine=pallas`` (the override must be logged and the plan
+   equal the torch session's); each other plan equal to the same session
+   with ``scorer=shard_score_plain``, every assignment duplicate-free,
+   the combined objective ``u + λ·colocations`` (host oracle) below the
+   input's. Prints colocations against the pigeonhole floor (a finding).
+10. ``-solver=beam -anti-colocation=0.001 -beam-siblings -max-reassign=4
+   -min-unbalance=1e-6`` through ``cli.run`` on the same cluster, every
+   emitted move checked on its own (it improves the unbalance, or at the
+   step's depth-1 retry the combined objective, by ``min_unbalance``);
+   then ``beam_plan`` (width 8, depth 4, siblings) with a budget of
+   ``BEAM_BUDGET`` moves, whose combined objective must fall. Prints ms
+   per depth step.
+
 Each path's launch counts are set to 0 just before it runs and read just
-after. Phases 6-8 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+after. Phases 6-10 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -568,21 +587,34 @@ def check_b2_ties(dev):
 NO_MOVES = '{"partitions": null}'
 
 
-def planned_unbalance(text, plan):
-    """The host oracle's unbalance of the cluster ``text`` with every move
-    of the reassignment document ``plan`` applied."""
+def planned(text, plan):
+    """The cluster ``text`` with every move of the reassignment document
+    ``plan`` applied, and the document's rows."""
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+
+    final = get_partition_list_from_reader(text, True)
+    by_key = {(p.topic, p.partition): p for p in final.partitions}
+    rows = json.loads(plan).get("partitions") or []
+    for row in rows:
+        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
+    return final, rows
+
+
+def unbalance_of(pl):
+    """The host oracle's unbalance (``balancer/costmodel.py``)."""
     from kafkabalancer_tpu_torch.balancer.costmodel import (
         get_bl,
         get_broker_load,
         get_unbalance_bl,
     )
-    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
 
-    final = get_partition_list_from_reader(text, True)
-    by_key = {(p.topic, p.partition): p for p in final.partitions}
-    for row in json.loads(plan).get("partitions") or []:
-        by_key[(row["topic"], row["partition"])].replicas = list(row["replicas"])
-    return get_unbalance_bl(get_bl(get_broker_load(final)))
+    return get_unbalance_bl(get_bl(get_broker_load(pl)))
+
+
+def planned_unbalance(text, plan):
+    """The host oracle's unbalance of the cluster ``text`` with every move
+    of the reassignment document ``plan`` applied."""
+    return unbalance_of(planned(text, plan)[0])
 
 
 def phase_main_path(dev):
@@ -1093,6 +1125,285 @@ def phase_solver_tpu(dev, path):
         f"{int(c.get('solver.window_rows', 0))}")
 
 
+# the JAX package's benchmark configuration 4b (benchmarks/suite.py:349-362):
+# 10k partitions x 100 brokers, weighted, power-law topic sizes, seed 42,
+# lambda 1e-3, min_unbalance 1e-6, the session at batch 128, beam width 8,
+# depth 4 with siblings
+COLO_SEED = 42
+COLO_LAM = 0.001
+COLO_FLAGS = ["-fused", "-fused-batch=128", "-allow-leader",
+              f"-anti-colocation={COLO_LAM}", "-min-unbalance=1e-6",
+              "-max-reassign=524288"]
+# the suite plans 4096 beam moves; cut to fit the script's time limit
+BEAM_BUDGET = 256
+
+
+def colocations(pl):
+    """Same-topic replicas sharing a broker beyond the first:
+    sum over (topic, broker) of max(0, count - 1)."""
+    per = {}
+    for p in pl.partitions:
+        for b in p.replicas:
+            per[(p.topic, b)] = per.get((p.topic, b), 0) + 1
+    return sum(max(0, c - 1) for c in per.values())
+
+
+def colocation_floor(pl, n_brokers):
+    """The pigeonhole floor: a topic with s replicas in all on B brokers
+    keeps at least max(0, s - B) colocations."""
+    per = {}
+    for p in pl.partitions:
+        per[p.topic] = per.get(p.topic, 0) + len(p.replicas)
+    return sum(max(0, c - n_brokers) for c in per.values())
+
+
+def capture_colo_inputs(pl, dev):
+    """The scoring kernel's inputs (counts rows included) at the first
+    iteration of the colocation session with -allow-leader."""
+    import torch
+
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+
+    seen = []
+
+    def capture(*args, **kw):
+        if not seen:
+            seen.append([a.clone() if torch.is_tensor(a) else a
+                         for a in (*args, kw.get("c_rows"))])
+        return shard_kernel.shard_score(*args, **kw)
+
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-6
+    cfg.allow_leader_rebalancing = True
+    plan(pl, cfg, 1, batch=128, device=dev, scorer=capture,
+         anti_colocation=COLO_LAM)
+    if not seen or seen[0][11] is None:
+        fail("no colocation scoring call captured")
+    return seen[0]
+
+
+def check_k1_colo(args):
+    """K1's colocation variant on the colocation session's own inputs:
+    the eight outputs equal to the plain version's, then device times
+    and the bound."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+
+    got = sk.shard_score(*args, allow_leader=True)
+    ref = sk.shard_score_plain(*args, allow_leader=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, c in zip(("vf", "pf", "vl", "pl", "vpf", "ppf", "vpl", "ppl"),
+                          got, ref):
+        if not bool((a == c).all()):
+            fail(f"shard_score colocation variant: output {name} differs from "
+                 f"the plain version")
+        if a.is_floating_point():
+            fin = torch.isfinite(c)
+            if fin.any():
+                err = max(err, float((a[fin] - c[fin]).abs().max()))
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms, host_ms = cuda_ms(lambda: sk.shard_score(*args, allow_leader=True), 20,
+                          flush_buf.zero_)
+    plain_ms, _ = cuda_ms(lambda: sk.shard_score_plain(*args, allow_leader=True),
+                          5, flush_buf.zero_)
+    bound_ms, bound_by = k1_bound_ms(args, True)
+    P, B = args[2].shape
+    log(f"shard_score colocation variant (P={P} B={B}, allow_leader, the "
+        f"phase 9 session's first iteration): equal (8 outputs, max_abs_err "
+        f"{err}); kernel {ms} ms on the device ({host_ms} ms host per call), "
+        f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}: "
+        f"{k1_bytes(args, True)} bytes incl. {args[11].numel() * 4} of counts "
+        f"rows, {k1_ops(args, True)} ops)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def phase_colocation(dev):
+    """Phase 9: the colocation session on config 4b's cluster through
+    ``cli.run``, without and with -fused-polish and with
+    -fused-engine=pallas (overridden to the torch session). Each plan
+    equals the same session with the kernel's plain version; the pallas
+    request's plan equals the torch session's; every assignment is
+    duplicate-free and the combined objective fell."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import (
+        get_partition_list_from_reader,
+        write_partition_list,
+    )
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    n_parts, n_brokers = MAIN_SHAPE
+    pl0 = synth_cluster(n_parts, n_brokers, rf=3, seed=COLO_SEED,
+                        weighted=True, zipf_topics=True)
+    path = os.path.join("chiprun_out", "smoke_colo_cluster.json")
+    with open(path, "w") as fh:
+        write_partition_list(fh, pl0)
+    with open(path) as fh:
+        text = fh.read()
+    u0, c0, floor = unbalance_of(pl0), colocations(pl0), colocation_floor(
+        pl0, n_brokers)
+    j0 = u0 + COLO_LAM * c0
+    k1 = check_k1_colo(capture_colo_inputs(
+        get_partition_list_from_reader(text, True), dev))
+    launches, plans = {}, {}
+    for name, extra in (("session", []), ("polish", ["-fused-polish"]),
+                        ("pallas", ["-fused-engine=pallas"])):
+        sk.shard_score.launches = 0
+        ps.pallas_session.launches = 0
+        obs.begin_invocation()
+        rc, out, err, wall = run_cli(["-input-json", "-input", path]
+                                     + COLO_FLAGS + extra)
+        n_k1, n_b2 = sk.shard_score.launches, ps.pallas_session.launches
+        if rc != 0:
+            fail(f"colocation {name} returned {rc}: {err[-2000:]}")
+        final, rows = planned(text, out)
+        if not rows:
+            fail(f"colocation {name}: an empty plan")
+        if n_k1 <= 0 or n_b2 != 0:
+            fail(f"colocation {name}: shard_score launches {n_k1}, "
+                 f"pallas_session launches {n_b2}")
+        for row in rows:
+            if len(set(row["replicas"])) != len(row["replicas"]):
+                fail(f"colocation {name}: duplicate replicas in {row}")
+        u1, c1 = unbalance_of(final), colocations(final)
+        j1 = u1 + COLO_LAM * c1
+        if not j1 < j0:
+            fail(f"colocation {name}: the combined objective {j1} is not below "
+                 f"the input's {j0}")
+        sess = counters("solver.session_")
+        log(f"colocation {name} on {n_parts}x{n_brokers} (config 4b: "
+            f"{' '.join(COLO_FLAGS + extra)}): rc 0, {len(rows)} moves "
+            f"emitted, {wall} s wall, colocations {c0} -> {c1} (floor "
+            f"{floor}), unbalance {u0} -> {u1}, objective u+{COLO_LAM}*coloc "
+            f"{j0} -> {j1}, shard_score launches {n_k1}, {json.dumps(sess)}"
+            + (f" {json.dumps(counters('polish.'))}" if name == "polish"
+               else ""))
+        log(f"colocation {name}: reached the colocation floor: {c1 == floor} "
+            f"({c1 - floor} above it)")
+        if name == "pallas":
+            if "-fused-engine=pallas is ignored" not in err:
+                fail("colocation pallas: the engine override was not logged")
+            if out != plans["session"]:
+                fail("colocation pallas: the plan differs from the torch "
+                     "session's")
+            log("colocation pallas: the override was logged and the plan "
+                "equals the torch session's")
+        else:
+            cfg = default_rebalance_config()
+            cfg.min_unbalance = 1e-6
+            cfg.allow_leader_rebalancing = True
+            opl = plan(get_partition_list_from_reader(text, True), cfg, 524288,
+                       batch=128, polish=name == "polish", device=dev,
+                       scorer=sk.shard_score_plain, anti_colocation=COLO_LAM)
+            if plan_text(opl) != out:
+                fail(f"colocation {name}: the plan differs from the same "
+                     f"session with the kernel's plain version")
+            log(f"colocation {name}: the plan equals the same session with "
+                f"the kernel's plain version")
+        launches[name], plans[name] = n_k1, out
+    return launches, k1, path
+
+
+def objectives(pl):
+    u = unbalance_of(pl)
+    return u, u + COLO_LAM * colocations(pl)
+
+
+def phase_beam(dev, path):
+    """Phase 10: -solver=beam on config 4b's cluster through ``cli.run``,
+    every emitted move checked on its own (the reference step's
+    invariant: it improves the unbalance, or at the depth-1 retry the
+    combined objective, by min_unbalance); then ``beam_plan`` with a
+    budget of BEAM_BUDGET moves."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.solvers import beam
+
+    mu = 1e-6
+    with open(path) as fh:
+        text = fh.read()
+    real = beam.beam_move
+    steps = []
+
+    def checked(pl, cfg, device=None):
+        before = objectives(pl)
+        ppl = real(pl, cfg, device)
+        if ppl is not None and ppl.partitions:
+            src = ppl.partitions[0]._source
+            old = list(src.replicas)
+            src.replicas[:] = ppl.partitions[0].replicas
+            after = objectives(pl)
+            src.replicas[:] = old
+            steps.append((before, after))
+        return ppl
+
+    beam.beam_move = checked
+    obs.begin_invocation()
+    try:
+        rc, out, err, wall = run_cli(
+            ["-input-json", "-input", path, "-solver=beam",
+             f"-anti-colocation={COLO_LAM}", "-beam-siblings",
+             "-max-reassign=4", f"-min-unbalance={mu}"])
+    finally:
+        beam.beam_move = real
+    if rc != 0:
+        fail(f"-solver=beam returned {rc}: {err[-2000:]}")
+    rows = json.loads(out).get("partitions") or []
+    if not rows or not steps:
+        fail("-solver=beam emitted no move")
+    for i, ((u0, j0), (u1, j1)) in enumerate(steps):
+        if not (u1 < u0 - mu or j1 < j0 - mu):
+            fail(f"-solver=beam move {i} improves neither the unbalance "
+                 f"({u0} -> {u1}) nor the combined objective ({j0} -> {j1}) "
+                 f"by {mu}")
+    by_u = sum(u1 < u0 - mu for (u0, _), (u1, _) in steps)
+    c = counters("beam.")
+    per_step = 1e3 * c.get("beam.search_seconds", 0.0) / max(
+        1, c.get("beam.depth_steps", 0))
+    log(f"beam: cli.run -solver=beam -anti-colocation={COLO_LAM} "
+        f"-beam-siblings -max-reassign=4 -min-unbalance={mu} on "
+        f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: rc 0, {len(rows)} moves emitted, "
+        f"{wall} s wall, {len(steps)} steps each improving on its own "
+        f"({by_u} the unbalance, {len(steps) - by_u} only the combined "
+        f"objective), objective {steps[0][0][1]} -> {steps[-1][1][1]}, "
+        f"{per_step} ms per depth step (host clock, {json.dumps(c)})")
+
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = mu
+    cfg.anti_colocation = COLO_LAM
+    cfg.beam_width, cfg.beam_depth, cfg.beam_siblings = 8, 4, True
+    pl = get_partition_list_from_reader(text, True)
+    j0 = objectives(pl)[1]
+    c0 = colocations(pl)
+    obs.begin_invocation()
+    t0 = time.perf_counter()
+    opl = beam.beam_plan(pl, cfg, BEAM_BUDGET, device=dev)
+    wall = time.perf_counter() - t0
+    u1, j1 = objectives(pl)
+    if not opl.partitions:
+        fail("beam_plan planned nothing")
+    if not j1 < j0:
+        fail(f"beam_plan: the combined objective {j1} is not below {j0}")
+    c = counters("beam.")
+    per_step = 1e3 * c.get("beam.search_seconds", 0.0) / max(
+        1, c.get("beam.depth_steps", 0))
+    log(f"beam: beam_plan width 8 depth 4 siblings, budget {BEAM_BUDGET} "
+        f"(config 4b plans 4096; cut for the time limit) on "
+        f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: {len(opl)} moves, {wall} s wall, "
+        f"objective {j0} -> {j1}, unbalance {u1}, colocations {c0} -> "
+        f"{colocations(pl)}, {per_step} ms per depth step (host clock, "
+        f"{json.dumps(c)})")
+
+
 def main() -> int:
     import torch
 
@@ -1164,6 +1475,13 @@ def main() -> int:
     phase_solver_tpu(dev, cluster_path)
     done(8)
 
+    # phases 9-10: the colocation session (K1's colocation variant) and
+    # beam on config 4b's cluster, each path's counts zeroed just before it
+    colo_launches, k1_colo, colo_path = phase_colocation(dev)
+    done(9)
+    phase_beam(dev, colo_path)
+    done(10)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -1183,7 +1501,12 @@ def main() -> int:
             "3: -fused -fused-batch=100": launches,
             "6: headline, torch session": headline["xla"][0],
             "6: headline, -fused-engine=pallas": headline["pallas"][0],
+            "9: -fused -anti-colocation": colo_launches["session"],
+            "9: -fused -anti-colocation -fused-polish": colo_launches["polish"],
+            "9: -fused -anti-colocation -fused-engine=pallas (overridden)":
+                colo_launches["pallas"],
         },
+        "colocation_variant": k1_colo,
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],

@@ -11,7 +11,8 @@ Solver selection (``cfg.solver``) swaps only the optimization tail
 (MoveLeaders/MoveNonLeaders — the reference's hot loop): ``tpu`` scores
 every candidate move on the device (``solvers/tpu.py``, on the device
 ``balance`` is given) instead of the O(P*R*B^2) scan, with plans
-byte-identical to the greedy tail; the beam tail is not ported yet.
+byte-identical to the greedy tail; ``beam`` replaces both Move steps with
+one lookahead search step (``solvers/beam.py``, on the same device).
 Validation, defaults and repairs are identical cheap host-side steps in
 every backend.
 """
@@ -62,8 +63,14 @@ def _steps_for(
              lambda pl, cfg: tpu.tpu_move_non_leaders(pl, cfg, device)),
         ]
     elif solver == "beam":
-        # the beam solver is not ported yet (ROADMAP.md queue A)
-        raise _s.BalanceError(f"solver {solver!r} is not yet ported")
+        # beam handles leader and follower candidates jointly in one
+        # lookahead search (solvers/beam.py); one tail step replaces both
+        # Move steps
+        from kafkabalancer_tpu_torch.solvers import beam
+
+        tail = [
+            ("BeamSearch", lambda pl, cfg: beam.beam_move(pl, cfg, device)),
+        ]
     else:
         raise _s.BalanceError(f"unknown solver {solver!r}")
     return _COMMON_HEAD + tail
@@ -81,7 +88,7 @@ def balance(
     Raises :class:`BalanceError` with a ``"<StepName>: <reason>"`` message on
     failure; otherwise returns a plan with exactly one proposed reassignment,
     or an empty plan when the assignment has converged. ``device`` is
-    where ``-solver=tpu`` scores (CUDA by default).
+    where ``-solver=tpu`` and ``-solver=beam`` score (CUDA by default).
     """
     for name, step in _steps_for(cfg, device):
         try:

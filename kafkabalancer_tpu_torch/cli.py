@@ -14,15 +14,20 @@ Planning paths of this package:
 - the default ``-solver=greedy`` host pipeline (no torch import);
 - ``-solver=tpu``: the same pipeline with the per-move window scorer of
   ``solvers/tpu.py`` on the device, byte-identical to greedy;
+- ``-solver=beam`` (with ``-beam-width``, ``-beam-depth``,
+  ``-beam-siblings`` and ``-anti-colocation``): the pipeline with the
+  lookahead search of ``solvers/beam.py`` as its one Move step;
 - ``-fused`` (with ``-fused-batch`` and ``-fused-engine``): the device
   converge session of ``solvers/scan.py`` with the hand-written kernels;
-  ``-fused-polish`` adds the pair-swap alternation (``solvers/polish.py``)
-  and ``-rebalance-leader`` runs the fused leader session
-  (``solvers/leader.py``).
+  ``-fused-polish`` adds the pair-swap alternation (``solvers/polish.py``),
+  ``-rebalance-leader`` runs the fused leader session
+  (``solvers/leader.py``) and ``-anti-colocation=λ`` the colocation
+  session (the scoring kernel's colocation variant; it composes with
+  ``-fused-polish``).
 
-``-fused`` and ``-solver=tpu`` run on CUDA. Without a GPU they exit 3;
-they never plan on the CPU by themselves (``run(..., device="cpu")`` asks
-for that).
+``-fused``, ``-solver=tpu`` and ``-solver=beam`` run on CUDA. Without a
+GPU they exit 3; they never plan on the CPU by themselves (``run(...,
+device="cpu")`` asks for that).
 
 Every other flag of the reference is parsed; a flag whose feature is not
 ported yet exits 3 with a one-line message naming its ROADMAP.md item
@@ -240,8 +245,8 @@ def _run_impl(
             "solver",
             "greedy",
             "Optimization backend: greedy (reference parity), tpu (the "
-            "per-move window scorer on the GPU, byte-identical to greedy); "
-            "beam is not ported yet",
+            "per-move window scorer on the GPU, byte-identical to greedy), "
+            "beam (N-way beam search)",
         )
         f_beam_width = f.int(
             "beam-width", defaults.beam_width,
@@ -254,7 +259,9 @@ def _run_impl(
         f_anti_coloc = f.float(
             "anti-colocation", defaults.anti_colocation,
             "Penalty weight for same-topic replicas sharing a broker "
-            "(0 disables; the -fused colocation session is not ported yet)",
+            "(0 disables). With -solver=beam: lookahead search over the "
+            "combined objective; with -fused: the colocation-aware "
+            "batched session (greedy in the combined objective)",
         )
         f_beam_siblings = f.bool(
             "beam-siblings", defaults.beam_siblings,
@@ -364,12 +371,28 @@ def _run_impl(
                     usage()
                     return 3
                 if f_anti_coloc.value > 0:
-                    log("-anti-colocation with -fused is not yet ported "
-                        "(ROADMAP.md A4 (anti-colocation session))")
-                    return 3
-            elif f_solver.value == "beam":
-                log("-solver=beam is not yet ported (ROADMAP.md A5)")
-                return 3
+                    # the colocation session's own constraints, as flag
+                    # validation instead of a planning failure
+                    if f_rebalance_leader.value:
+                        log(
+                            "-anti-colocation with -fused excludes "
+                            "-rebalance-leader"
+                        )
+                        usage()
+                        return 3
+                    if f_batch.value <= 1:
+                        log("-anti-colocation with -fused requires "
+                            "-fused-batch>1")
+                        usage()
+                        return 3
+                    if f_engine.value.startswith("pallas"):
+                        # plan() runs the torch colocation session: the
+                        # whole-session kernel has no colocation state
+                        log(
+                            "-anti-colocation runs the XLA colocation "
+                            f"session; -fused-engine={f_engine.value} is "
+                            "ignored"
+                        )
 
         topics = [t for t in f_topics.value.split(",") if len(t) >= 1]
 
@@ -434,13 +457,13 @@ def _run_impl(
         r = f_max.value
 
         dev = None
-        if f_fused.value or f_solver.value == "tpu":
+        if f_fused.value or f_solver.value in ("tpu", "beam"):
             from kafkabalancer_tpu_torch.solvers.scan import resolve_device
 
             try:
                 dev = resolve_device(device)
             except RuntimeError as exc:
-                what = "-fused" if f_fused.value else "-solver=tpu"
+                what = "-fused" if f_fused.value else f"-solver={f_solver.value}"
                 log(f"{what} needs a CUDA GPU: {exc}")
                 return 3
 
@@ -472,6 +495,7 @@ def _run_impl(
                         engine=f_engine.value,
                         polish=f_polish.value,
                         device=dev,
+                        anti_colocation=max(0.0, f_anti_coloc.value),
                     )
             except BalanceError as exc:
                 log(f"failed optimizing distribution: {exc}")

@@ -161,12 +161,15 @@ def unbalance(loads: Tensor, bvalid: Tensor, nb: Scalar) -> Tensor:
     """The scalar objective over the valid brokers (utils.go:119-147).
 
     ``nb`` is the real broker count (padded entries excluded). NaN/inf
-    propagate per IEEE like the Go code's float64 division.
+    propagate per IEEE like the Go code's float64 division. Leading
+    dimensions are a batch (the beam search's states, ``loads [W, B]``
+    with ``bvalid [W, B]`` and ``nb [W]``): each row is reduced exactly as
+    one call on that row would be.
     """
     zero = torch.zeros_like(loads)
-    avg = ordered_sum(torch.where(bvalid, loads, zero)) / nb
-    pen = overload_penalty(loads, avg)
-    return ordered_sum(torch.where(bvalid, pen, zero))
+    avg = ordered_sum(torch.where(bvalid, loads, zero), -1) / nb
+    pen = overload_penalty(loads, avg[..., None])
+    return ordered_sum(torch.where(bvalid, pen, zero), -1)
 
 
 def rank_brokers(
@@ -362,7 +365,10 @@ def factored_target_best(
     allow_leader: bool,
     c_rows: Optional[Tensor] = None,
     lam: Optional[Scalar] = None,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    exclude_p: Optional[Tensor] = None,
+    exclude_src: Optional[Tuple[Any, Any]] = None,
+    top2: bool = False,
+) -> Tuple[Tensor, ...]:
     """Best candidate per TARGET broker via the factorized rank-1
     objective ``u = su + A[source] + C[target]``: only [P, B] work, the
     [P, R, B] tensor never materializes.
@@ -375,6 +381,17 @@ def factored_target_best(
     ABSOLUTE (``su``-based) and ineligible targets at +inf. This is the
     dense formulation of what the scoring kernel
     (``parallel/shard_kernel.py``) computes in one streaming pass.
+
+    The beam search's options:
+
+    - ``exclude_p [B]`` bars one partition row per target;
+    - ``exclude_src=(p, b)`` (scalars) bars partition ``p``'s replica on
+      broker ``b`` as a move source, in both passes (the search's bar on
+      re-moving the replica it just placed; ``(-1, -1)`` bars nothing);
+    - ``top2`` also returns the second-best candidate per target among
+      partitions other than the (merged) winner's, ``(su, vals, p, slot,
+      vals2, p2, slot2)``: the same as a second call with
+      ``exclude_p=p``, from the value tensors already built.
     """
     P, R = replicas.shape
     B = loads.shape[0]
@@ -388,50 +405,71 @@ def factored_target_best(
     w = weights[:, None]
     eligible = pvalid & (nrep_tgt >= min_replicas)  # [P]
     tmask = allowed & ~member & bvalid[None, :]
+    rows = torch.arange(P, device=dev)[:, None]
+    if exclude_p is not None:
+        tmask = tmask & (rows != exclude_p[None, :])
     lead_oh = replicas[:, 0:1] == torch.arange(B, device=dev)[None, :]
     colo_sub = colo_add = None
     if c_rows is not None:
         colo_sub, colo_add = colo_terms(c_rows, lam)
+    src_bar = None
+    if exclude_src is not None:
+        ex_p, ex_b = exclude_src
+        src_bar = (rows == ex_p) & (torch.arange(B, device=dev)[None, :] == ex_b)
+
+    def masked(x: Tensor, mask: Tensor) -> Tensor:
+        return torch.where(mask, x, torch.full_like(x, inf))
 
     # follower pass (member brokers minus the leader, delta = w)
     srcmask_f = member & ~lead_oh & eligible[:, None]
-    A_f = _src_terms(loads, w, avg, F, colo_sub)
-    A_f = torch.where(srcmask_f, A_f, torch.full_like(A_f, inf))
+    if src_bar is not None:
+        srcmask_f = srcmask_f & ~src_bar
+    A_f = masked(_src_terms(loads, w, avg, F, colo_sub), srcmask_f)
     A_star = A_f.amin(1)
     C_f = _tgt_terms(loads, w, avg, F, colo_add)
-    V = torch.where(
-        tmask & torch.isfinite(A_star)[:, None], A_star[:, None] + C_f,
-        torch.full_like(C_f, inf),
-    )
+    V = masked(A_star[:, None] + C_f, tmask & torch.isfinite(A_star)[:, None])
     vals, p = V.amin(0), V.argmin(0)
 
-    # source slot recovery for the [B] winners only, ascending-slot ties
-    rows = A_f[p]  # [B, B]
-    rp = replicas[p]  # [B, R]
-    slot_vals = rows.gather(1, rp.clamp(min=0).long())
-    slot_iota = torch.arange(R, device=dev)[None, :]
-    valid = (slot_iota >= 1) & (slot_iota < nrep_cur[p][:, None])
-    slot = torch.where(valid, slot_vals, torch.full_like(slot_vals, inf)).argmin(1)
+    def slot_of(p_win: Tensor) -> Tensor:
+        # source slot recovery for the [B] winners only, ascending-slot ties
+        slot_vals = A_f[p_win].gather(1, replicas[p_win].clamp(min=0).long())
+        slot_iota = torch.arange(R, device=dev)[None, :]
+        valid = (slot_iota >= 1) & (slot_iota < nrep_cur[p_win][:, None])
+        return masked(slot_vals, valid).argmin(1)
+
+    slot = slot_of(p)
 
     if allow_leader:
         # leader pass (slot 0, delta = w·(replicas+consumers))
         wl = weights * (nrep_cur.to(loads.dtype) + ncons)
         ok_l = (nrep_cur >= 1) & eligible
-        A_l_pb = _src_terms(loads, wl[:, None], avg, F, colo_sub)
-        A_l = torch.where(
-            lead_oh & ok_l[:, None], A_l_pb, torch.full_like(A_l_pb, inf)
-        ).amin(1)
+        lead_src = lead_oh & ok_l[:, None]
+        if src_bar is not None:
+            lead_src = lead_src & ~src_bar
+        A_l = masked(_src_terms(loads, wl[:, None], avg, F, colo_sub), lead_src).amin(1)
         C_l = _tgt_terms(loads, wl[:, None], avg, F, colo_add)
-        V_l = torch.where(
-            tmask & torch.isfinite(A_l)[:, None], A_l[:, None] + C_l,
-            torch.full_like(C_l, inf),
-        )
+        V_l = masked(A_l[:, None] + C_l, tmask & torch.isfinite(A_l)[:, None])
         vals_l, p_l = V_l.amin(0), V_l.argmin(0)
         lead_better = vals_l < vals
         vals = torch.where(lead_better, vals_l, vals)
         p = torch.where(lead_better, p_l, p)
         slot = torch.where(lead_better, torch.zeros_like(slot), slot)
-    return su, su + vals, p, slot
+    if not top2:
+        return su, su + vals, p, slot
+
+    # second best per target among partitions other than the winner's
+    keep = rows != p[None, :]  # [P, B]
+    V2 = masked(V, keep)
+    vals2, p2 = V2.amin(0), V2.argmin(0)
+    slot2 = slot_of(p2)
+    if allow_leader:
+        V2_l = masked(V_l, keep)
+        vals2_l, p2_l = V2_l.amin(0), V2_l.argmin(0)
+        lb2 = vals2_l < vals2
+        vals2 = torch.where(lb2, vals2_l, vals2)
+        p2 = torch.where(lb2, p2_l, p2)
+        slot2 = torch.where(lb2, torch.zeros_like(slot2), slot2)
+    return su, su + vals, p, slot, su + vals2, p2, slot2
 
 
 def paired_best(

@@ -52,6 +52,7 @@ import torch
 
 from kafkabalancer_tpu_torch import obs
 from kafkabalancer_tpu_torch.ops.cost import (
+    colo_terms,
     ordered_sum,
     overload_penalty,
     rank_brokers,
@@ -183,9 +184,19 @@ def _swap_loop(
     min_unbalance: Tensor,
     budget: int,
     ML: int,
+    tid: Optional[Tensor] = None,
+    lam: Optional[Tensor] = None,
+    n_topics: int = 0,
 ) -> int:
     """The pair-swap loop (see the module docstring). Mutates ``st``; logs
     each swap as its two constituent moves. Returns its iteration count.
+
+    ``n_topics > 0`` (with ``tid [P]`` and the 0-d ``lam``) scores swaps
+    on the combined objective ``u + λ·Σ max(0, c-1)``: each candidate
+    adds the colocation delta of its two membership changes (zero when
+    both partitions share a topic: the cells cancel). The per-(topic,
+    broker) counts are rebuilt from the live membership each iteration;
+    pairs are broker-disjoint, so no two accepted swaps touch one cell.
     """
     P, R = st.rep.shape
     B = st.loads.shape[0]
@@ -209,6 +220,10 @@ def _swap_loop(
         F = torch.where(bvalid, overload_penalty(loads, avg), torch.zeros_like(loads))
         su = ordered_sum(F)
         eps = torch.maximum(min_unbalance, su * rel_eps)
+        if n_topics:
+            # integer-valued floats: exact in any summation order
+            counts = torch.zeros((n_topics, B), dtype=dtype, device=dev)
+            scatter_add_(counts, tid, (mem & pvalid[:, None]).to(dtype))
 
         # hottest half paired with a rotation of the coldest half; the
         # halves are disjoint rank ranges, so pairs are broker-disjoint
@@ -263,6 +278,18 @@ def _swap_loop(
                 - F[hb]
                 - F[t_e]
             )
+            if n_topics:
+                # entry 1 (topic t1) moves hot -> cold, entry 2 (topic t2)
+                # cold -> hot; one topic means the cells cancel exactly
+                t1 = tid[ep]
+                t2 = t1[j2c]
+                sub1, _ = colo_terms(counts[t1, hb], lam)
+                _, add1 = colo_terms(counts[t1, t_e], lam)
+                sub2, _ = colo_terms(counts[t2, t_e], lam)
+                _, add2 = colo_terms(counts[t2, hb], lam)
+                delta = delta + torch.where(
+                    t1 == t2, torch.zeros_like(delta), add1 - sub1 + add2 - sub2
+                )
             return torch.where(feas1 & feas2, delta, torch.full_like(delta, inf)), j2c
 
         sa, ja = cand_score(j_above, va)
@@ -438,6 +465,9 @@ def converge_session(
     engine: str = "xla",
     all_allowed: bool = False,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+    topic_id: Optional[Tensor] = None,
+    lam: Optional[float] = None,
+    n_topics: int = 0,
 ) -> Tensor:
     """Move phases and swap phases alternated until neither commits, on
     the device the inputs live on (float inputs in the session dtype;
@@ -450,11 +480,25 @@ def converge_session(
     single moves reopen) with swap phases and, with ``allow_leader``,
     leadership-shuffle phases. ``scorer`` is passed to every move phase.
 
+    ``n_topics > 0`` (with ``topic_id`` and ``lam``) runs every phase on
+    the combined anti-colocation objective: the move phases are the
+    colocation session (``scan.session``'s counts state), the swap phase
+    adds the ±λ pair terms, and the leadership shuffle needs nothing (a
+    leadership transfer moves no membership, so the counts do not
+    change). ``xla`` engine only: the whole-session kernel has no
+    colocation state.
+
     Returns ``packed``, the int32 concatenation ``[move_p | move_slot |
     move_tgt | n]`` sized ``3 * (2 * max_moves) + 1``. The host-clock time
     and count of each phase kind go to the ``polish.*`` counters.
     """
     from kafkabalancer_tpu_torch.solvers.scan import member_from, session
+
+    if n_topics and engine != "xla":
+        raise ValueError(
+            "the colocation-aware polish session runs the xla engine only "
+            "(the whole-session kernel has no colocation state)"
+        )
 
     B = loads.shape[0]
     dtype = loads.dtype
@@ -499,6 +543,12 @@ def converge_session(
         always_valid=always_valid, universe_valid=universe_valid,
         min_unbalance=mu, budget=budget, ML=ML,
     )
+    colo = {}
+    if n_topics:
+        colo = dict(topic_id=topic_id, lam=lam, n_topics=n_topics)
+        swap_kw.update(
+            tid=topic_id, lam=scalar(lam, dtype, dev), n_topics=n_topics
+        )
     shuffle_kw = dict(
         weights=weights, nrep_cur=nrep_cur, nrep_tgt=nrep_tgt, ncons=ncons,
         pvalid=pvalid, always_valid=always_valid,
@@ -513,7 +563,7 @@ def converge_session(
             "move", lambda: session(
                 st.loads, st.rep, st.mem, allowed, *inputs, budget - st.n,
                 max_moves=max_moves, allow_leader=allow_leader, batch=batch,
-                scorer=scorer,
+                scorer=scorer, **colo,
             ),
         )
         st.merge(st.n, pmp, pmslot, pmtgt)

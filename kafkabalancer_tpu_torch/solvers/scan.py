@@ -30,7 +30,9 @@ sessions run under the same wrapper: ``polish=True`` alternates move
 sessions with pair-swap phases (``solvers/polish.py``), and
 ``rebalance_leaders`` runs the fused leader session
 (``solvers/leader.py``), whose leadership exchanges the log carries as
-``leader.SWAP_SLOT`` entries.
+``leader.SWAP_SLOT`` entries. ``anti_colocation=λ`` runs the batched
+session (and polish) on the combined objective ``u + λ·colocations``
+with per-(topic, broker) counts as session state.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from kafkabalancer_tpu_torch.models.partition import empty_partition_list
 from kafkabalancer_tpu_torch.obs import convergence
 from kafkabalancer_tpu_torch.ops.cost import (
     broker_loads,
+    colo_terms,
     move_candidate_scores,
     ordered_sum,
     overload_penalty,
@@ -99,6 +102,61 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
+def anti_colocation_requested(
+    cfg: RebalanceConfig, anti_colocation: Optional[float], batch: int,
+) -> Tuple[float, bool]:
+    """The engine-independent half of the activation convention: the
+    penalty that would activate under the ``xla`` engine, and whether it
+    was an explicit request. Returns ``(lam, explicit)``."""
+    if anti_colocation is None:
+        lam = getattr(cfg, "anti_colocation", 0.0) or 0.0
+        if lam and (batch <= 1 or cfg.rebalance_leaders):
+            lam = 0.0
+        return max(0.0, lam), False
+    return max(0.0, anti_colocation), True
+
+
+def resolve_anti_colocation(
+    cfg: RebalanceConfig,
+    anti_colocation: Optional[float],
+    batch: int,
+    engine: str,
+    what: str = "colocation session",
+) -> Tuple[float, str]:
+    """When an anti-colocation penalty activates; returns ``(lam,
+    engine)``.
+
+    The argument overrides ``cfg.anti_colocation``, which is the default.
+    A cfg-derived penalty activates only where it changes nothing for
+    other callers: it drops at ``batch <= 1``, with ``rebalance_leaders``
+    and under an explicit kernel engine. An explicit request validates:
+    ``batch > 1`` and no ``rebalance_leaders`` (the leader session has no
+    colocation state), and a non-``xla`` engine is overridden with a
+    warning (the whole-session kernel has no colocation state either).
+    """
+    lam, explicit = anti_colocation_requested(cfg, anti_colocation, batch)
+    if not explicit and lam and engine != "xla":
+        lam = 0.0
+    if lam and batch <= 1:
+        raise ValueError("anti_colocation requires batch > 1")
+    if lam and cfg.rebalance_leaders:
+        raise ValueError(
+            "anti_colocation is not supported with rebalance_leaders "
+            "(the fused leader session has no colocation state)"
+        )
+    if lam and engine != "xla":
+        import warnings
+
+        warnings.warn(
+            f"anti_colocation runs the XLA {what}; explicit "
+            f"engine={engine!r} request is overridden",
+            UserWarning,
+            stacklevel=3,
+        )
+        engine = "xla"
+    return lam, engine
+
+
 def prefix_accept(
     vals: Tensor,
     p: Tensor,
@@ -114,6 +172,8 @@ def prefix_accept(
     batch: int,
     budget: int,
     max_moves: int,
+    topic: Optional[Tensor] = None,
+    colo_d: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """PREFIX-EXACT batched-commit acceptance over a candidate pool.
 
@@ -131,6 +191,14 @@ def prefix_accept(
     +inf for dead candidates) plus the scalars. Returns ``(ok, pos,
     cnt)``: the accepted mask, each candidate's move-log position, and
     the accepted count.
+
+    ``topic``/``colo_d`` (both [K], together) extend the contract to the
+    anti-colocation objective: ``colo_d`` is each candidate's colocation
+    delta ±λ from the pass-START counts, and it stays exact because an
+    earlier same-topic claimant sharing either broker first-claims the
+    candidate like a partition — no two accepted moves of a pass touch
+    the same (topic, broker) cell. ``d_k`` then scores the combined
+    objective (load delta + ``colo_d``).
 
     Claims are made by every IMPROVING candidate, not only by the finally
     accepted set (the reference's deliberate, conservative
@@ -151,6 +219,17 @@ def prefix_accept(
         (vals[:, None] == vals[None, :]) & (kk[:, None] < kk[None, :])
     )
     claimed = E & improving[:, None] & (p[:, None] == p[None, :])
+    if topic is not None:
+        # (topic, broker) first-claim: keeps each ±λ constant exact
+        bshare = (
+            (s_[:, None] == s_[None, :])
+            | (s_[:, None] == t[None, :])
+            | (t[:, None] == s_[None, :])
+            | (t[:, None] == t[None, :])
+        )
+        claimed |= (
+            E & improving[:, None] & (topic[:, None] == topic[None, :]) & bshare
+        )
     surv = improving & ~claimed.any(0)
 
     Ej = (E & surv[:, None]).to(dtype)  # [K, K] j earlier & survives
@@ -169,6 +248,8 @@ def prefix_accept(
         + overload_penalty(Lt + w_k, avg)
         - overload_penalty(Lt, avg)
     )
+    if colo_d is not None:
+        d_k = d_k + colo_d
     ok = surv & (d_k < -min_unbalance) & (d_k < 0)
     # cut at the first survivor whose sequential delta fails — nets for
     # later candidates would assume commits that never happen
@@ -191,6 +272,8 @@ def batch_pool(
     score: Callable[..., Tuple[Tensor, ...]],
     *,
     allow_leader: bool,
+    c_rows: Optional[Tensor] = None,
+    lam: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
     """One batched iteration's candidate pool, before acceptance.
 
@@ -205,6 +288,10 @@ def batch_pool(
     applied load delta (the leader premium travels with slot 0,
     utils.go:96-101). Shared by :func:`session` and the whole-session
     kernel's plain version (``solvers/pallas_session.py``).
+
+    ``c_rows [P, B]`` (with the 0-d ``lam``) switches on the scorer's
+    ±λ colocation terms; the winners' slot recovery subtracts the same
+    source term, so it finds the slot the scorer scored the winner on.
     """
     dtype = loads.dtype
     dev = loads.device
@@ -220,10 +307,11 @@ def batch_pool(
     )
     su = ordered_sum(F)
     s_i, t_i, live = pair_frame(loads, bvalid)
+    lam_s = torch.zeros_like(minrep) if lam is None else lam
     vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
         rep, cols, mem, allowed, loads, F, bvalid,
-        torch.stack([avg, minrep, torch.zeros_like(minrep)]),
-        s_i.to(torch.int32), t_i.to(torch.int32), live,
+        torch.stack([avg, minrep, lam_s]),
+        s_i.to(torch.int32), t_i.to(torch.int32), live, c_rows=c_rows,
         allow_leader=allow_leader,
     )
     pf = pf.long()
@@ -234,6 +322,8 @@ def batch_pool(
         overload_penalty(loads[None, :] - weights[pf][:, None], avg)
         - F[None, :]
     )  # [B, B]
+    if c_rows is not None:
+        rowsA = rowsA - colo_terms(c_rows[pf], lam)[0]
     slot_vals = rowsA.gather(1, rep[pf].clamp(min=0).long())
     valids = (slot_iota >= 1) & (slot_iota < nrep_cur[pf][:, None])
     slot_f = torch.where(
@@ -374,6 +464,9 @@ def session(
     allow_leader: bool,
     batch: int = 1,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+    topic_id: Optional[Tensor] = None,
+    lam: Optional[float] = None,
+    n_topics: int = 0,
 ) -> Tuple[Tensor, ...]:
     """Run up to ``min(budget, max_moves)`` accepted moves on the device
     the inputs live on (all on one device; float inputs in the session
@@ -390,6 +483,14 @@ def session(
     it exists so a check on the card can run the same session with
     ``shard_score_plain`` and compare move logs.
 
+    ``n_topics > 0`` (with ``topic_id [P]`` and ``lam``) runs the
+    anti-colocation session on the combined objective ``u + λ·Σ max(0,
+    c - 1)``: per-(topic, broker) replica counts ride as float state
+    (built once from the membership, updated per commit), the scorer
+    gets each partition's counts row, and every candidate carries its
+    ±λ colocation delta from the pass-start counts into
+    :func:`prefix_accept`. It needs ``batch > 1``.
+
     Returns ``(replicas, loads, n_moves, move_p, move_slot, move_src,
     move_tgt, final_su)``; the ``move_*`` logs (int32, length
     ``max_moves``) hold the accepted moves in order, -1 past ``n_moves``.
@@ -401,6 +502,11 @@ def session(
     dev = loads.device
     inf = float("inf")
     score = shard_score if scorer is None else scorer
+    if n_topics and batch <= 1:
+        raise ValueError(
+            "the anti-colocation session requires batch > 1 "
+            "(the pooled batched selection)"
+        )
     mu = scalar(min_unbalance, dtype, dev)
     cg = scalar(DEFAULT_CHURN_GATE, dtype, dev)
 
@@ -417,6 +523,14 @@ def session(
     bcount = (mem & pvalid[:, None]).sum(0).to(torch.int32)
     # move log rows p | slot | src | tgt, trash column at max_moves
     log = torch.full((4, max_moves + 1), -1, dtype=torch.long, device=dev)
+    if n_topics:
+        # per-(topic, broker) replica counts; integer-valued floats, so
+        # every summation order gives the same bits
+        tid = topic_id.long()
+        counts = torch.zeros((n_topics, B), dtype=dtype, device=dev)
+        scatter_add_(counts, tid, (member & pvalid[:, None]).to(dtype))
+        counts_flat = counts.view(-1)
+        lam_t = scalar(lam, dtype, dev)
 
     def table() -> Tuple[Tensor, Tensor]:
         bvalid = (always_valid | (bcount > 0)) & universe_valid
@@ -427,13 +541,22 @@ def session(
 
     def step_batch(n: int) -> int:
         bvalid, nb = table()
+        colo = dict(c_rows=counts[tid], lam=lam_t) if n_topics else {}
         vals, p, slot, s_, t, w_k, avg, su = batch_pool(
             loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
-            allow_leader=allow_leader,
+            allow_leader=allow_leader, **colo,
         )
+        tid_k = colo_d = None
+        if n_topics:
+            # each candidate's colocation delta from the pass-start
+            # counts; prefix_accept's (topic, broker) claims keep it exact
+            tid_k = tid[p]
+            sub_s, _ = colo_terms(counts_flat[tid_k * B + s_], lam_t)
+            _, add_t = colo_terms(counts_flat[tid_k * B + t], lam_t)
+            colo_d = add_t - sub_s
         ok, pos, cnt = prefix_accept(
             vals, p, s_, t, w_k, loads, avg, su, mu, cg, n, batch, budget,
-            max_moves,
+            max_moves, topic=tid_k, colo_d=colo_d,
         )
 
         # commit; rejected candidates add zeros and write to the trash
@@ -443,6 +566,10 @@ def session(
         oki = ok.to(torch.int32)
         scatter_add_(bcount, s_, -oki)
         scatter_add_(bcount, t, oki)
+        if n_topics:
+            okd = ok.to(dtype)
+            scatter_add_(counts_flat, tid_k * B + s_, -okd)
+            scatter_add_(counts_flat, tid_k * B + t, okd)
         rep_buf[torch.where(ok, p * R + slot, P * R)] = t.to(rep_buf.dtype)
         mem_buf[torch.where(ok, p * B + s_, P * B)] = False
         mem_buf[torch.where(ok, p * B + t, P * B)] = True
@@ -506,6 +633,7 @@ def _run_chunk(
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]],
     engine: str = "xla",
     mode: str = "move",
+    lam: float = 0.0,
 ) -> "np.ndarray":
     """One session over ``dp`` on ``device``; returns the packed move log
     ``[move_p | move_slot | move_tgt | n]`` as one host array.
@@ -516,7 +644,8 @@ def _run_chunk(
     ``"pallas-interpret"`` that kernel's plain version on ``device``.
     ``"polish"`` runs the move/swap alternation of ``solvers/polish.py``
     (log length ``2 * max_moves``) and ``"leader"`` the rebalance-leaders
-    session of ``solvers/leader.py``."""
+    session of ``solvers/leader.py``. ``lam > 0`` runs the move and
+    polish sessions on the anti-colocation objective (``xla`` only)."""
     all_allowed = all_allowed_of(dp)
     d = to_device(dp, device, dtype, all_allowed=all_allowed)
     B = dp.bvalid.shape[0]
@@ -527,6 +656,13 @@ def _run_chunk(
         d.weights, d.nrep_cur, d.nrep_tgt, d.ncons, d.pvalid, always,
         d.bvalid, cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
     )
+    colo = {}
+    if lam:
+        # the topic-count bucket: counts rows past the real count stay 0
+        colo = dict(
+            topic_id=torch.from_numpy(dp.topic_id).to(device, torch.long),
+            lam=lam, n_topics=next_bucket(max(1, len(dp.topics)), 64),
+        )
     obs.metrics.count("solver.chunks")
     with obs.span(
         "solver.dispatch_chunk", max_moves=max_moves, batch=batch,
@@ -549,7 +685,7 @@ def _run_chunk(
                 torch.from_numpy(evalid).to(device),
                 max_moves=max_moves, allow_leader=cfg.allow_leader_rebalancing,
                 batch=max(1, batch), engine=engine, all_allowed=all_allowed,
-                scorer=scorer,
+                scorer=scorer, **colo,
             )
             return packed.cpu().numpy()
         if mode == "leader":
@@ -565,7 +701,7 @@ def _run_chunk(
                 loads, d.replicas, d.member, d.allowed, *common,
                 max_moves=max_moves,
                 allow_leader=cfg.allow_leader_rebalancing, batch=max(1, batch),
-                scorer=scorer,
+                scorer=scorer, **colo,
             )
         else:
             from kafkabalancer_tpu_torch.solvers.pallas_session import (
@@ -728,6 +864,7 @@ def plan(
     chunk_moves: Optional[int] = None,
     device: Any = None,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+    anti_colocation: Optional[float] = None,
 ) -> PartitionList:
     """Full multi-move planning session: host-side repairs, then the
     device session in chunks. The output accumulates live partitions in
@@ -751,18 +888,25 @@ def plan(
     Balance loop runs as the fused leader session (``solvers/leader.py``;
     ``engine`` and ``polish`` do not apply). ``chunk_moves`` overrides
     the per-session move budget (:func:`auto_chunk_moves`).
+
+    ``anti_colocation=λ > 0`` plans on the combined objective ``u +
+    λ·Σ_{topic,broker} max(0, c-1)`` (the objective the beam solver
+    searches, ``solvers/beam.py``) in the batched session, the scoring
+    kernel's colocation variant in every iteration, and in every polish
+    phase with ``polish``. The activation rules are
+    :func:`resolve_anti_colocation`'s: it needs ``batch > 1``, excludes
+    ``rebalance_leaders`` and runs the ``xla`` engine whatever engine was
+    asked for.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    # "auto" resolves before the colocation rules: it is not an explicit
+    # kernel request
     engine = resolve_engine(engine)
+    lam, engine = resolve_anti_colocation(cfg, anti_colocation, batch, engine)
     opl = empty_partition_list()
     if max_reassign <= 0:
         return opl
-    if (
-        cfg.anti_colocation and batch > 1 and not cfg.rebalance_leaders
-        and engine == "xla"
-    ):
-        raise BalanceError("the anti-colocation session is not yet ported")
     device = resolve_device(device)
     if chunk_moves is None:
         chunk_moves = auto_chunk_moves(len(pl.partitions or []))
@@ -793,13 +937,15 @@ def plan(
         try:
             packed = _run_chunk(
                 dp, cfg, chunk, dtype, batch, device, scorer, engine,
-                mode="polish" if polish else "move",
+                mode="polish" if polish else "move", lam=lam,
             )
         except (RuntimeError, ValueError) as exc:
-            if not use_kernel:
+            if not use_kernel and device.type != "cuda":
                 raise
-            # a kernel that does not build, launch or take these shapes is
-            # a planning failure (CLI exit 3); nothing falls back
+            # a kernel (the whole-session kernel, or the scoring kernel
+            # of the torch session on the card) that does not build,
+            # launch or take these shapes is a planning failure (CLI exit
+            # 3); nothing falls back
             raise BalanceError(f"{engine} engine failed ({exc})") from exc
         # polish interleaves swap and shuffle phases, and neither the
         # batched mode nor the whole-session kernel (pooled selection at

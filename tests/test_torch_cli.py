@@ -9,13 +9,17 @@ pipeline and for ``-fused -fused-batch=4`` (the port on the CPU via
 with ``-fused-engine=pallas`` against the reference's
 ``-fused-engine=pallas-interpret`` (both at float32), and for
 ``-fused -fused-polish`` (with and without ``-allow-leader``, batch 1, 4
-and the default), ``-fused -rebalance-leader`` (batch 1 and 4) and
-``-solver=tpu`` over the golden inputs.
+and the default), ``-fused -rebalance-leader`` (batch 1 and 4),
+``-solver=tpu``, ``-solver=beam`` (with and without ``-anti-colocation``)
+and ``-fused -fused-batch=4 -anti-colocation`` (with and without
+``-fused-polish``) over the golden inputs.
 
 Also pinned here: the port imports neither jax nor the JAX package
 (subprocess check), ``-fused``, ``-fused-polish``, ``-fused
--rebalance-leader`` and ``-solver=tpu`` without a GPU exit 3, and flags
-whose feature is not ported exit 3 naming their ROADMAP.md item.
+-rebalance-leader``, ``-fused -anti-colocation``, ``-solver=tpu`` and
+``-solver=beam`` without a GPU exit 3, the colocation session's flag
+checks exit 3 as the reference's do, and flags whose feature is not
+ported exit 3 naming their ROADMAP.md item.
 """
 
 import io
@@ -153,6 +157,12 @@ NEW_PATHS = {
                   "-complete-partition=false"],
     "leader-b4": ["-fused", "-rebalance-leader", "-fused-batch=4"],
     "solver-tpu": ["-solver=tpu"],
+    "solver-beam": ["-solver=beam"],
+    "solver-beam-colo": ["-solver=beam", "-anti-colocation=0.001",
+                         "-beam-siblings"],
+    "colo-b4": ["-fused", "-fused-batch=4", "-anti-colocation=0.001"],
+    "colo-polish-b4": ["-fused", "-fused-batch=4", "-anti-colocation=0.001",
+                       "-fused-polish"],
 }
 
 
@@ -193,6 +203,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.solvers.polish\n"
         "import kafkabalancer_tpu_torch.solvers.leader\n"
         "import kafkabalancer_tpu_torch.solvers.tpu\n"
+        "import kafkabalancer_tpu_torch.solvers.beam\n"
         "import kafkabalancer_tpu_torch.balancer.pipeline\n"
         "import kafkabalancer_tpu_torch.ops.nvcc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -226,7 +237,9 @@ def test_fused_without_a_gpu_exits_3(monkeypatch):
         (["-fused", "-fused-polish"], "-fused"),
         (["-fused", "-fused-polish", "-fused-engine=pallas"], "-fused"),
         (["-fused", "-rebalance-leader"], "-fused"),
+        (["-fused", "-anti-colocation=0.001"], "-fused"),
         (["-solver=tpu"], "-solver=tpu"),
+        (["-solver=beam"], "-solver=beam"),
     ],
 )
 def test_new_paths_without_a_gpu_exit_3(monkeypatch, flags, what):
@@ -282,7 +295,7 @@ def test_polish_with_rebalance_leader_says_it_is_ignored():
         ("-explain=-", "A1"),
         ("-serve", "A7"),
         ("-shard-scale", "A6"),
-        ("-solver=beam", "A5"),
+        ("-jax-profile=prof", "A9"),
     ],
 )
 def test_unported_flags_exit_3(flag, item):
@@ -295,17 +308,22 @@ def test_unported_flags_exit_3(flag, item):
 
 
 @pytest.mark.parametrize(
-    "extra,item",
+    "extra,rc,says",
     [
-        (["-fused-polish", "-anti-colocation=0.5"], "A4"),
-        (["-anti-colocation=0.5"], "A4"),
+        (["-anti-colocation=0.001", "-rebalance-leader"], 3, "excludes"),
+        (["-anti-colocation=0.001", "-fused-batch=1"], 3,
+         "requires -fused-batch>1"),
+        (["-anti-colocation=0.001", "-fused-engine=pallas"], 0,
+         "-fused-engine=pallas is ignored"),
     ],
 )
-def test_unported_fused_modes_exit_3(extra, item):
+def test_fused_anti_colocation_flag_checks(extra, rc, says):
+    """tests/test_cli.py::test_fused_anti_colocation's exits: the same rc
+    and stdout as the reference CLI, and its diagnostic."""
+    argv = ["-input-json", f"-input={FIXTURE}", "-fused", "-max-reassign=64",
+            "-min-unbalance=0"] + extra
+    ref = jrun_out(argv, "")
     o, e = io.StringIO(), io.StringIO()
-    rc = trun(
-        io.StringIO(fixture_text()), o, e,
-        ["kafkabalancer", "-input-json", "-fused"] + extra, device="cpu",
-    )
-    assert rc == 3
-    assert f"ROADMAP.md {item}" in e.getvalue()
+    got = trun(io.StringIO(""), o, e, ["kafkabalancer"] + argv, device="cpu")
+    assert (got, o.getvalue()) == ref
+    assert got == rc and says in e.getvalue()

@@ -216,6 +216,110 @@ def test_factored_target_best(npdt, tdt, allow_leader, colo, seed):
         same(a, b)
 
 
+def target_best_both(dp, j, t, npdt, tdt, allow_leader, crows, **opts):
+    """``factored_target_best`` of both packages on the same inputs;
+    ``opts`` values are numpy arrays or ints, passed to each side in its
+    own tensor type."""
+    nb = float(dp.nb)
+
+    def conv(v, to):
+        if isinstance(v, tuple):
+            return tuple(conv(x, to) for x in v)
+        return to(v) if isinstance(v, np.ndarray) else v
+
+    jr = jcost.factored_target_best(
+        j["loads"], j["replicas"], j["allowed"], j["member"], j["bvalid"],
+        j["weights"], j["nrep_cur"], j["nrep_tgt"], j["ncons"], j["pvalid"],
+        jnp.asarray(nb, npdt), 2, allow_leader=allow_leader,
+        c_rows=None if crows is None else jnp.asarray(crows),
+        lam=None if crows is None else jnp.asarray(0.25, npdt),
+        **{k: conv(v, jnp.asarray) for k, v in opts.items()},
+    )
+    tr = tcost.factored_target_best(
+        t["loads"], t["replicas"], t["allowed"], t["member"], t["bvalid"],
+        t["weights"], t["nrep_cur"], t["nrep_tgt"], t["ncons"], t["pvalid"],
+        torch.tensor(nb, dtype=tdt), 2, allow_leader=allow_leader,
+        c_rows=None if crows is None else torch.from_numpy(crows),
+        lam=None if crows is None else 0.25,
+        **{k: conv(v, torch.from_numpy) for k, v in opts.items()},
+    )
+    return jr, tr
+
+
+def member_cell(dp, seed):
+    """A seeded (partition, broker) cell holding a replica: the source
+    ``exclude_src`` bars."""
+    rows, cols = np.nonzero(dp.member[: dp.np_])
+    i = np.random.default_rng(seed).integers(len(rows))
+    return np.asarray(rows[i], np.int32), np.asarray(cols[i], np.int32)
+
+
+@pytest.mark.parametrize("npdt,tdt", DTYPES)
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("colo", [False, True])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_factored_target_best_top2_and_exclude_src(
+    npdt, tdt, allow_leader, colo, seed
+):
+    """The beam search's options: ``top2`` with the ``exclude_src`` bar
+    (seven outputs), and each alone."""
+    dp = instance(seed, restrict=True)
+    j, t = both(dp, npdt, tdt)
+    crows = colo_rows(dp, npdt, seed) if colo else None
+    cell = member_cell(dp, seed)
+    for opts in (dict(top2=True, exclude_src=cell), dict(top2=True),
+                 dict(exclude_src=cell)):
+        jr, tr = target_best_both(dp, j, t, npdt, tdt, allow_leader, crows, **opts)
+        assert len(jr) == len(tr) == (7 if opts.get("top2") else 4)
+        for a, b in zip(jr, tr):
+            same(a, b)
+
+
+@pytest.mark.parametrize("npdt,tdt", DTYPES)
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("colo", [False, True])
+def test_factored_target_best_exclude_p(npdt, tdt, allow_leader, colo):
+    seed = SEEDS[0]
+    dp = instance(seed, restrict=True)
+    j, t = both(dp, npdt, tdt)
+    crows = colo_rows(dp, npdt, seed) if colo else None
+    B = dp.bvalid.shape[0]
+    ex = np.random.default_rng(seed).integers(0, dp.np_, B).astype(np.int32)
+    jr, tr = target_best_both(dp, j, t, npdt, tdt, allow_leader, crows, exclude_p=ex)
+    for a, b in zip(jr, tr):
+        same(a, b)
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("colo", [False, True])
+def test_factored_target_best_top2_equals_exclude_call(allow_leader, colo):
+    """tests/test_ops.py's identity in the port: ``top2``'s second best is
+    exactly a second call with ``exclude_p`` = the first winners."""
+    for seed in SEEDS:
+        dp = instance(seed, restrict=True)
+        _, t = both(dp, np.float64, torch.float64)
+        crows = colo_rows(dp, np.float64, seed) if colo else None
+        args = (
+            t["loads"], t["replicas"], t["allowed"], t["member"], t["bvalid"],
+            t["weights"], t["nrep_cur"], t["nrep_tgt"], t["ncons"],
+            t["pvalid"], torch.tensor(float(dp.nb), dtype=torch.float64), 2,
+        )
+        kw = dict(
+            allow_leader=allow_leader,
+            c_rows=None if crows is None else torch.from_numpy(crows),
+            lam=None if crows is None else 0.25,
+        )
+        su, v1, p1, s1, v2, p2, s2 = tcost.factored_target_best(
+            *args, top2=True, **kw
+        )
+        su_b, v2b, p2b, s2b = tcost.factored_target_best(*args, exclude_p=p1, **kw)
+        fin = torch.isfinite(v2b)
+        assert fin.any()
+        assert torch.equal(su, su_b) and torch.equal(v2, v2b)
+        assert torch.equal(p2[fin], p2b[fin]) and torch.equal(s2[fin], s2b[fin])
+        assert not bool((p2[fin] == p1[fin]).any())
+
+
 @pytest.mark.parametrize("npdt,tdt", DTYPES)
 @pytest.mark.parametrize("allow_leader", [False, True])
 @pytest.mark.parametrize("colo", [False, True])

@@ -463,3 +463,80 @@ def test_polish_surfaces_the_session_kernel_limit(cuda_device):
     with pytest.raises(BalanceError, match="pallas engine failed"):
         scan.plan(synth_cluster(3000, 1100, seed=25), cfg(), 1000, batch=16,
                   engine="pallas", polish=True, device=cuda_device)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_colocation_session_with_the_kernel_matches_plain(
+    cuda_device, allow_leader, polish
+):
+    """``plan(anti_colocation=λ)`` on the card: every batched iteration
+    launches the scoring kernel's colocation variant, and the plan equals
+    the same session with its plain version."""
+    kw = dict(batch=16, anti_colocation=0.001, polish=polish,
+              device=cuda_device)
+    sk.shard_score.launches = 0
+    a = scan.plan(synth_cluster(1500, 30, seed=26, zipf_topics=True),
+                  cfg(allow_leader), 100_000, **kw)
+    assert sk.shard_score.launches > 0
+    b = scan.plan(synth_cluster(1500, 30, seed=26, zipf_topics=True),
+                  cfg(allow_leader), 100_000, scorer=sk.shard_score_plain, **kw)
+    assert plan_moves(a) and plan_moves(a) == plan_moves(b)
+
+
+def test_colocation_kernel_failure_exits_3(cuda_device, monkeypatch):
+    """A scoring-kernel failure on the colocation path is a planning
+    failure (CLI exit 3); the plain version never stands in."""
+    import io
+
+    from kafkabalancer_tpu_torch import cli
+    from kafkabalancer_tpu_torch.codecs import write_partition_list
+
+    def broken(*a, **k):
+        raise RuntimeError("shard_score kernel launch failed: test")
+
+    monkeypatch.setattr(sk, "_launch", broken)
+    buf = io.StringIO()
+    write_partition_list(buf, synth_cluster(300, 12, seed=27, zipf_topics=True))
+    o, e = io.StringIO(), io.StringIO()
+    rc = cli.run(io.StringIO(buf.getvalue()), o, e,
+                 ["kafkabalancer", "-input-json", "-fused", "-fused-batch=8",
+                  "-anti-colocation=0.001", "-min-unbalance=1e-7"])
+    assert rc == 3 and "engine failed" in e.getvalue()
+    assert o.getvalue() == ""
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.001])
+def test_beam_move_on_the_card_improves(cuda_device, lam):
+    """``beam_move`` on ``cuda:0`` emits a move that improves, on its own,
+    the host oracle's unbalance or (the depth-1 retry) the combined
+    objective by ``min_unbalance``."""
+    import collections
+
+    from kafkabalancer_tpu_torch.balancer import steps
+    from kafkabalancer_tpu_torch.balancer.costmodel import (
+        get_bl,
+        get_broker_load,
+        get_unbalance_bl,
+    )
+    from kafkabalancer_tpu_torch.cli import apply_assignment
+    from kafkabalancer_tpu_torch.solvers import beam
+
+    def objectives(pl):
+        u = get_unbalance_bl(get_bl(get_broker_load(pl)))
+        n = collections.Counter(
+            (p.topic, b) for p in pl.partitions for b in p.replicas
+        )
+        return u, u + lam * sum(v - 1 for v in n.values() if v > 1)
+
+    c = cfg()
+    c.anti_colocation = lam
+    pl = synth_cluster(1500, 30, seed=28, zipf_topics=True)
+    steps.validate_weights(pl, c)
+    steps.fill_defaults(pl, c)
+    u0, j0 = objectives(pl)
+    ppl = beam.beam_move(pl, c, device=cuda_device)
+    assert ppl is not None and len(ppl.partitions) == 1
+    apply_assignment(pl, ppl.partitions[0])
+    u1, j1 = objectives(pl)
+    assert u1 < u0 - c.min_unbalance or j1 < j0 - c.min_unbalance

@@ -176,13 +176,11 @@ def test_session_uses_the_scorer_hook():
     assert calls and moves(a) == moves(b)
 
 
-def test_unported_engines_and_modes_raise():
-    from kafkabalancer_tpu_torch.balancer import BalanceError
-
+def test_invalid_engines_and_colocation_requests_raise():
     _, tc = cfgs()
-    tc.anti_colocation = 0.5
-    with pytest.raises(BalanceError, match="not yet ported"):
-        tscan.plan(tsynth(50, 6), tc, 10, batch=4, device="cpu")
+    with pytest.raises(ValueError, match="batch > 1"):
+        tscan.plan(tsynth(50, 6), tc, 10, batch=1, anti_colocation=0.5,
+                   device="cpu")
     with pytest.raises(ValueError):
         tscan.plan(tsynth(50, 6), tdefault(), 10, engine="nope", device="cpu")
 
