@@ -89,8 +89,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``BEAM_BUDGET`` moves, whose combined objective must fall. Prints ms
    per depth step.
 
+11. The sharded converge session: ``cli.run`` with phase 3's flags and
+   ``-fused-shard`` (one shard per card) must print phase 3's plan;
+   ``plan_sharded`` on meshes naming the card 2 and 4 times must plan it
+   too, and on 2 shards with ``scorer=shard_score_plain``; the scoring
+   kernel against its plain version (all variants, timed, bound) on the
+   inputs of one of 4 shards and of one row chunk of the scale tier; the
+   scale tier with polish (``scale=True, polish=True``, batch 128,
+   ``-allow-leader``) at 160000 x 250 on 4 shards must equal
+   ``scan.plan(polish=True)``. Each run's K1 launches must equal shards x
+   row chunks x sharded iterations (plus the polish tail's move-phase
+   iterations); prints wall, iterations and ms per iteration.
+12. The what-if sweep (``parallel/sweep.py``) of the JAX suite's six
+   scenarios (status quo, +1, +2, +4 brokers, -1, -2) on phase 3's
+   cluster, batch 100, budget 2000: engine ``pallas`` (one whole-session
+   launch per scenario) must equal ``pallas-interpret`` and engine
+   ``xla`` (K1 per iteration) the same with the plain scorer; prints
+   each scenario's feasibility, evacuations, moves and unbalance, the
+   best scenario, the wall and the launches.
+
 Each path's launch counts are set to 0 just before it runs and read just
-after. Phases 6-10 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+after. Phases 6-12 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -1404,6 +1423,263 @@ def phase_beam(dev, path):
         f"{json.dumps(c)})")
 
 
+# phase 11: the sharded session. Phase 3's flags with -fused-shard; meshes
+# that name the card 2 and 4 times; the scale tier with polish at the
+# JAX package's largest sharded row (README.md, 160k x 250)
+SHARD_FLAGS = ["-fused", "-fused-shard", "-fused-batch=100",
+               f"-max-reassign={MAIN_REASSIGN}", "-min-unbalance=1e-7"]
+SHARD_SCALE_SHAPE = (160000, 250)
+SHARD_SCALE_S = 4
+
+
+def counter(name):
+    from kafkabalancer_tpu_torch import obs
+
+    return obs.REGISTRY.counter_get(name)
+
+
+def sharded_run(fn):
+    """``fn()`` with the launch counts and counters zeroed just before:
+    ``(result, wall s, K1 launches, sharded iterations, sharded session s,
+    single-device session iterations)``; the wall ends with a device
+    sync."""
+    import torch
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+
+    obs.begin_invocation()
+    sk.shard_score.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, sk.shard_score.launches,
+            int(counter("shard.session_iterations")),
+            counter("shard.session_seconds"),
+            int(counter("solver.session_iterations")))
+
+
+def capture_shard(pl, S, dev, **kw):
+    """The scoring kernel's inputs at the first call of a sharded session
+    on ``S`` shards of the card (shard 0's rows, or its first row chunk),
+    cloned at the call."""
+    import torch
+
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.shard_session import plan_sharded
+
+    seen = []
+
+    def capture(*args, **k):
+        if not seen:
+            seen.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return sk.shard_score(*args, **k)
+
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    plan_sharded(pl, cfg, 1, make_mesh(devices=[dev] * S, shape=(1, S)),
+                 batch=100, scorer=capture, **kw)
+    return seen[0]
+
+
+def phase_sharded(dev, path, xla_plan):
+    """Phase 11: the sharded converge session on the card. Returns K1's
+    launches per path and its times at the shard shapes."""
+    import torch
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.shard_session import (
+        _resolve_row_chunk,
+        plan_sharded,
+    )
+    from kafkabalancer_tpu_torch.ops.runtime import scale_bucket
+    from kafkabalancer_tpu_torch.solvers.scan import plan
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    with open(path) as fh:
+        text = fh.read()
+    launches = {}
+
+    def report(key, label, res, S, chunks=1):
+        _out, wall, k1, iters, secs, tail = res
+        if iters <= 0 or k1 != S * chunks * iters + tail:
+            fail(f"{label}: shard_score launches {k1} != {S} shards x "
+                 f"{chunks} chunks x {iters} iterations + {tail} tail "
+                 f"iterations")
+        log(f"{key}, {label}: {wall} s wall, {iters} sharded iterations "
+            f"({secs} s, {1e3 * secs / iters} ms per iteration), "
+            f"{S} shards x {chunks} row chunks, shard_score launches {k1}"
+            + (f" ({tail} in the polish tail's move phases)" if tail else ""))
+        launches[key] = k1
+
+    # 11a: the CLI, one shard per visible card
+    res = sharded_run(lambda: run_cli(["-input-json", "-input", path]
+                                      + SHARD_FLAGS))
+    rc, out, err, _wall = res[0]
+    if rc != 0:
+        fail(f"cli.run -fused-shard returned {rc}: {err[-2000:]}")
+    if out != xla_plan:
+        fail("cli.run -fused -fused-shard: the plan differs from phase 3's")
+    report("11: cli.run -fused -fused-shard",
+           f"{' '.join(SHARD_FLAGS)} (equals phase 3's plan)", res,
+           torch.cuda.device_count())
+
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+
+    def sharded(S, **kw):
+        mesh = make_mesh(devices=[dev] * S, shape=(1, S))
+        return plan_text(plan_sharded(
+            get_partition_list_from_reader(text, True), cfg, MAIN_REASSIGN,
+            mesh, batch=100, **kw))
+
+    # 11b: meshes naming the card 2 and 4 times; 11c: K1's plain version
+    for S in (2, 4):
+        res = sharded_run(lambda: sharded(S))
+        if res[0] != xla_plan:
+            fail(f"plan_sharded S={S}: the plan differs from phase 3's")
+        report(f"11: plan_sharded S={S}", f"batch=100 on {MAIN_SHAPE[0]}x"
+               f"{MAIN_SHAPE[1]} (equals phase 3's plan)", res, S)
+    if sharded(2, scorer=sk.shard_score_plain) != xla_plan:
+        fail("plan_sharded S=2 with shard_score_plain: the plan differs")
+    log("11: plan_sharded S=2 with shard_score_plain: the identical plan")
+    times = {"10k x 100, one of 4 shards": check_k1(capture_shard(
+        get_partition_list_from_reader(text, True), 4, dev),
+        "10k x 100, one of 4 shards")}
+
+    # 11d: the scale tier with polish, 160k x 250 on 4 shards
+    n_parts, n_brokers = SHARD_SCALE_SHAPE
+    S = SHARD_SCALE_S
+    scfg = default_rebalance_config()
+    scfg.min_unbalance = 1e-7
+    scfg.allow_leader_rebalancing = True
+
+    def cluster():
+        return synth_cluster(n_parts, n_brokers, rf=3, seed=SEED + 2,
+                             weighted=True)
+
+    def scale_run(S_, scale=True):
+        pl = cluster()
+        opl = plan_sharded(pl, scfg, MAIN_REASSIGN,
+                           make_mesh(devices=[dev] * S_, shape=(1, S_)),
+                           batch=128, scale=scale, polish=True)
+        return plan_text(opl), unbalance_of(pl), len(opl)
+
+    P_l = scale_bucket(n_parts, 8 * S) // S
+    rc = _resolve_row_chunk(None, P_l)
+    label = f"{n_parts} x {n_brokers}, one {rc}-row chunk of 4 shards"
+    times[label] = check_k1(capture_shard(cluster(), S, dev, scale=True), label)
+    chunks = -(-P_l // rc) if rc else 1
+    res = sharded_run(lambda: scale_run(S))
+    text4, u4, n4 = res[0]
+    pol = counters("polish.")
+    report(f"11: plan_sharded scale=True polish=True S={S}",
+           f"batch=128 -allow-leader on {n_parts}x{n_brokers} (P/S = {P_l}, "
+           f"row chunk {rc}): {n4} moves, unbalance {u4}, polish tail "
+           f"{json.dumps(pol)}", res, S, chunks)
+    single = sharded_run(lambda: (lambda pl: (plan_text(plan(
+        pl, scfg, MAIN_REASSIGN, batch=128, polish=True, device=dev)),
+        unbalance_of(pl)))(cluster()))
+    text1, u1 = single[0]
+    if text1 != text4:
+        fail(f"plan_sharded scale=True polish=True S={S}: the plan differs "
+             f"from scan.plan(polish=True)'s (unbalance {u4} against {u1})")
+    log(f"11: scan.plan(polish=True) batch=128 on {n_parts}x{n_brokers}: "
+        f"{single[1]} s wall, {single[5]} session iterations, the identical "
+        f"plan")
+    return launches, times
+
+
+# phase 12: the what-if sweep of the JAX package's suite (config 5's six
+# scenarios, benchmarks/suite.py) on phase 3's cluster
+SWEEP_BUDGET = 2000
+SWEEP_BATCH = 100
+
+
+def phase_sweep(dev, path):
+    """Phase 12: ``sweep`` with engine pallas (one B2 launch per scenario)
+    against pallas-interpret, and engine xla (K1 per batched iteration)
+    against the plain scorer, on the card. Returns the launches per
+    engine."""
+    import torch
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.sweep import best_scenario, sweep
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    with open(path) as fh:
+        pl = get_partition_list_from_reader(fh.read(), True)
+    observed = sorted({b for p in pl.partitions for b in p.replicas})
+    hi = max(observed)
+    scenarios = [observed, observed + [hi + 1], observed + [hi + 1, hi + 2],
+                 observed + [hi + 1, hi + 2, hi + 3, hi + 4], observed[1:],
+                 observed[2:]]
+    names = ["status quo", "+1", "+2", "+4", "-1", "-2"]
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    mesh = make_mesh(devices=[dev])
+
+    def run(engine, **kw):
+        obs.begin_invocation()
+        sk.shard_score.launches = 0
+        ps.pallas_session.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(pl, cfg, scenarios, max_reassign=SWEEP_BUDGET, mesh=mesh,
+                    batch=SWEEP_BATCH, engine=engine, **kw)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, sk.shard_score.launches,
+                ps.pallas_session.launches,
+                int(counter("solver.session_iterations")))
+
+    def rows(res):
+        return [(r.feasible, r.completed, r.n_evacuations, r.n_moves,
+                 r.unbalance, r.replicas) for r in res]
+
+    launches = {}
+    for engine, plain, kw in (("pallas", "pallas-interpret", {}),
+                              ("xla", "xla", {"scorer": sk.shard_score_plain})):
+        res, wall, k1, b2, iters = run(engine)
+        evac_s = counter("sweep.evacuation_seconds")
+        feasible = sum(r.feasible for r in res)
+        if engine == "pallas" and b2 != len(scenarios):
+            fail(f"sweep engine=pallas: {b2} pallas_session launches for "
+                 f"{len(scenarios)} scenarios")
+        if engine == "xla" and k1 != iters:
+            fail(f"sweep engine=xla: {k1} shard_score launches for {iters} "
+                 f"session iterations")
+        ref = run(plain, **kw)[0]
+        if rows(ref) != rows(res):
+            fail(f"sweep engine={engine}: the results differ from "
+                 f"engine={plain} {kw or ''}")
+        best = best_scenario(res)
+        for name, r in zip(names, res):
+            log(f"12: sweep engine={engine} {name} ({len(r.brokers)} "
+                f"brokers): feasible {r.feasible}, completed {r.completed}, "
+                f"{r.n_evacuations} evacuations, {r.n_moves} moves, "
+                f"unbalance {r.unbalance}")
+        log(f"12: sweep engine={engine} batch={SWEEP_BATCH} max_reassign="
+            f"{SWEEP_BUDGET}, {len(scenarios)} scenarios on {MAIN_SHAPE[0]}x"
+            f"{MAIN_SHAPE[1]}: {wall} s wall, {feasible} feasible, best "
+            f"{names[best]}, pallas_session launches {b2}, shard_score "
+            f"launches {k1} ({iters} session iterations), {evac_s} s in "
+            f"{int(counter('sweep.evacuations'))} evacuations; equal to "
+            f"engine={plain} {list(kw) or ''}")
+        launches[engine] = (k1, b2)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1482,6 +1758,13 @@ def main() -> int:
     phase_beam(dev, colo_path)
     done(10)
 
+    # phases 11-12: the sharded session and the what-if sweep, each path's
+    # counts zeroed just before it
+    shard_launches, shard_times = phase_sharded(dev, cluster_path, xla_plan)
+    done(11)
+    sweep_launches = phase_sweep(dev, cluster_path)
+    done(12)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -1505,8 +1788,11 @@ def main() -> int:
             "9: -fused -anti-colocation -fused-polish": colo_launches["polish"],
             "9: -fused -anti-colocation -fused-engine=pallas (overridden)":
                 colo_launches["pallas"],
+            **shard_launches,
+            "12: sweep engine=xla batch=100": sweep_launches["xla"][0],
         },
         "colocation_variant": k1_colo,
+        "shard_shapes": shard_times,
         "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
@@ -1522,6 +1808,8 @@ def main() -> int:
         "launches_by_path": {
             "3b: -fused -fused-engine=pallas -fused-batch=100": b2_launches,
             "6: headline, -fused-engine=pallas": headline["pallas"][1],
+            "12: sweep engine=pallas (one per scenario)":
+                sweep_launches["pallas"][1],
         },
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],

@@ -23,7 +23,8 @@ Planning paths of this package:
   ``-rebalance-leader`` runs the fused leader session
   (``solvers/leader.py``) and ``-anti-colocation=λ`` the colocation
   session (the scoring kernel's colocation variant; it composes with
-  ``-fused-polish``).
+  ``-fused-polish``); ``-fused-shard`` (with ``-shard-scale``) shards
+  that session over every visible GPU (``parallel/shard_session.py``).
 
 ``-fused``, ``-solver=tpu`` and ``-solver=beam`` run on CUDA. Without a
 GPU they exit 3; they never plan on the CPU by themselves (``run(...,
@@ -114,9 +115,6 @@ def apply_assignment(pl: PartitionList, changed: Partition) -> Partition:
 _SERVING = "A7 (serving)"
 _EXPORTERS = "A1 (telemetry exporters)"
 _NOT_PORTED = [
-    ("fused-shard", "bool", False, "Fused mode: shard the session over "
-     "devices", "A6 (multi-GPU)"),
-    ("shard-scale", "bool", False, "Fused-shard scale tier", "A6 (multi-GPU)"),
     ("jax-profile", "string", "", "Device trace directory", "A9 (tooling)"),
     ("stats", "bool", False, "Invocation telemetry summary", _EXPORTERS),
     ("metrics-json", "string", "", "Invocation metrics JSON path", _EXPORTERS),
@@ -297,6 +295,26 @@ def _run_impl(
             "session (compound two-replica exchanges escape single-move "
             "local optima; an extension beyond the reference)",
         )
+        f_shard = f.bool(
+            "fused-shard",
+            False,
+            "Fused mode: shard the converge session over all visible GPUs "
+            "(each scores its block of partition rows, the winners combine "
+            "under one total order; plans identical to the single-device "
+            "session). Requires -fused; composes with -fused-polish (a "
+            "single-device polish tail), -anti-colocation and "
+            "-rebalance-leader (the fused leader session is single-device "
+            "by design and runs as such)",
+        )
+        f_shard_scale = f.bool(
+            "shard-scale",
+            False,
+            "Fused-shard scale tier: fine-ladder partition buckets "
+            "(multiples of 8 x device count above 64k rows), per-shard "
+            "upload, membership rebuilt on each device and row-chunked "
+            "scoring; plans stay identical to the single-device session. "
+            "Requires -fused-shard",
+        )
         f_pprof_path = f.string(
             "pprof-path",
             "cpu.pprof",
@@ -365,6 +383,16 @@ def _run_impl(
                 usage()
                 return 3
 
+            if f_shard.value and not f_fused.value:
+                log("-fused-shard requires -fused")
+                usage()
+                return 3
+
+            if f_shard_scale.value and not f_shard.value:
+                log("-shard-scale requires -fused-shard")
+                usage()
+                return 3
+
             if f_fused.value:
                 if f_engine.value not in ENGINES:
                     log(f"unknown fused engine {f_engine.value!r}")
@@ -385,9 +413,10 @@ def _run_impl(
                             "-fused-batch>1")
                         usage()
                         return 3
-                    if f_engine.value.startswith("pallas"):
+                    if f_engine.value.startswith("pallas") and not f_shard.value:
                         # plan() runs the torch colocation session: the
-                        # whole-session kernel has no colocation state
+                        # whole-session kernel has no colocation state (the
+                        # sharded session scores it with every engine)
                         log(
                             "-anti-colocation runs the XLA colocation "
                             f"session; -fused-engine={f_engine.value} is "
@@ -485,18 +514,55 @@ def _run_impl(
                     "neighborhood); ignoring it"
                 )
             try:
-                with obs.span(
-                    "plan", mode="fused", engine=f_engine.value,
-                    polish=f_polish.value,
-                ):
-                    opl = plan(
-                        pl, cfg, r,
-                        batch=max(1, f_batch.value),
-                        engine=f_engine.value,
-                        polish=f_polish.value,
-                        device=dev,
-                        anti_colocation=max(0.0, f_anti_coloc.value),
+                if f_shard.value:
+                    # the sharded converge session over every visible GPU
+                    # (parallel/shard_session.py), or over the one device
+                    # the caller pinned
+                    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+                    from kafkabalancer_tpu_torch.parallel.shard_session import (
+                        plan_sharded,
                     )
+
+                    if f_rebalance_leader.value:
+                        log(
+                            "-fused-shard with -rebalance-leader runs the "
+                            "fused leader session single-device (its "
+                            "Balance loop is sequential by contract)"
+                        )
+                    import torch
+
+                    devices = (
+                        [dev] if device is not None else
+                        [torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())]
+                    )
+                    # every device on the part axis: one session, S shards
+                    mesh = make_mesh(devices=devices, shape=(1, len(devices)))
+                    with obs.span(
+                        "plan", mode="fused-shard", engine=f_engine.value,
+                        polish=f_polish.value, scale=f_shard_scale.value,
+                    ):
+                        opl = plan_sharded(
+                            pl, cfg, r, mesh,
+                            batch=max(1, f_batch.value),
+                            engine=f_engine.value,
+                            polish=f_polish.value,
+                            anti_colocation=max(0.0, f_anti_coloc.value),
+                            scale=f_shard_scale.value,
+                        )
+                else:
+                    with obs.span(
+                        "plan", mode="fused", engine=f_engine.value,
+                        polish=f_polish.value,
+                    ):
+                        opl = plan(
+                            pl, cfg, r,
+                            batch=max(1, f_batch.value),
+                            engine=f_engine.value,
+                            polish=f_polish.value,
+                            device=dev,
+                            anti_colocation=max(0.0, f_anti_coloc.value),
+                        )
             except BalanceError as exc:
                 log(f"failed optimizing distribution: {exc}")
                 return 3

@@ -24,7 +24,7 @@ Conventions:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -49,7 +49,10 @@ class DensePlan:
     nrep_tgt: np.ndarray  # [P] int32 — partition.num_replicas
     ncons: np.ndarray  # [P] f64 — partition.num_consumers
     allowed: np.ndarray  # [P, B] bool — per-partition allowed brokers
-    member: np.ndarray  # [P, B] bool — broker currently holds a replica
+    # [P, B] bool — broker currently holds a replica; None under the lean
+    # encode (tensorize(build_member=False)), whose sharded session
+    # rebuilds each shard's membership from its replica rows
+    member: Optional[np.ndarray]
     pvalid: np.ndarray  # [P] bool
     bvalid: np.ndarray  # [B] bool
     topic_id: np.ndarray  # [P] int32 — dense topic index (pad rows: 0)
@@ -72,6 +75,16 @@ class DensePlan:
             raise KeyError(f"broker {broker_id} not in dense universe")
         return idx
 
+    def decode_replicas(
+        self, replicas: np.ndarray, nrep_cur: np.ndarray
+    ) -> List[List[int]]:
+        """Dense replica matrix → per-partition broker-ID lists (real rows)."""
+        out: List[List[int]] = []
+        for p in range(self.np_):
+            n = int(nrep_cur[p])
+            out.append([int(self.broker_ids[int(replicas[p, s])]) for s in range(n)])
+        return out
+
 
 def all_allowed_of(dp: "DensePlan") -> bool:
     """True when the [P, B] allowed matrix is just the broker-validity
@@ -82,9 +95,11 @@ def all_allowed_of(dp: "DensePlan") -> bool:
 
 
 def broker_universe(
-    pl: PartitionList, cfg: Optional[RebalanceConfig] = None
+    pl: PartitionList,
+    cfg: Optional[RebalanceConfig] = None,
+    extra_brokers: Iterable[int] = (),
 ) -> np.ndarray:
-    """Sorted broker universe: observed ∪ cfg.brokers.
+    """Sorted broker universe: observed ∪ cfg.brokers ∪ extra.
 
     Deliberately does NOT include per-partition ``p.brokers`` entries: the
     reference's ``move()`` builds its load table from observed brokers plus
@@ -94,7 +109,7 @@ def broker_universe(
     brokers outside this universe are likewise dropped from the dense
     ``allowed`` mask.
     """
-    seen: set = set()
+    seen = set(int(b) for b in extra_brokers)
     for p in pl.iter_partitions():
         seen.update(p.replicas)
     if cfg is not None and cfg.brokers:
@@ -126,12 +141,31 @@ def encode_allowed_row(
 
 
 def tensorize(
-    pl: PartitionList, cfg: Optional[RebalanceConfig] = None
+    pl: PartitionList,
+    cfg: Optional[RebalanceConfig] = None,
+    extra_brokers: Sequence[int] = (),
+    min_bucket: int = 8,
+    min_replica_bucket: int = 2,
+    p_bucket: Optional[int] = None,
+    build_member: bool = True,
 ) -> DensePlan:
     """Encode ``pl`` (post-``fill_defaults``: weights, brokers, num_replicas
-    populated) into a :class:`DensePlan`."""
+    populated) into a :class:`DensePlan`.
+
+    ``extra_brokers`` extends the universe with IDs that appear in no
+    replica list and no config (what-if sweeps that add brokers).
+    ``min_bucket`` floors the partition bucket (the sharded session takes
+    a multiple of its shard count); ``min_replica_bucket`` floors the
+    replica-slot bucket, so per-scenario encodings of a sweep stack.
+    ``p_bucket`` replaces the power-of-two partition bucket with an
+    explicit row count (the scale tier's fine ladder,
+    ``ops.runtime.scale_bucket``); it must cover the real partitions.
+    ``build_member=False`` skips the ``[P, B]`` membership table
+    (``member=None``): the sharded session rebuilds each shard's slice
+    from its replica rows.
+    """
     parts = list(pl.iter_partitions())
-    ids = broker_universe(pl, cfg)
+    ids = broker_universe(pl, cfg, extra_brokers)
     nb = len(ids)
     np_real = len(parts)
 
@@ -140,8 +174,12 @@ def tensorize(
     # extend past num_replicas, so bucket on the max of both
     rmax = max(rmax, max((p.num_replicas for p in parts), default=0))
 
-    P = next_bucket(np_real, 8)
-    R = next_bucket(rmax, 2)
+    P = next_bucket(np_real, min_bucket)
+    if p_bucket is not None:
+        if p_bucket < np_real:
+            raise ValueError(f"p_bucket {p_bucket} < {np_real} real partitions")
+        P = p_bucket
+    R = next_bucket(rmax, max(2, min_replica_bucket))
     B = next_bucket(nb, 8)
 
     weights = np.zeros(P, dtype=HOST_FLOAT_DTYPE)
@@ -150,7 +188,7 @@ def tensorize(
     nrep_tgt = np.zeros(P, dtype=np.int32)
     ncons = np.zeros(P, dtype=HOST_FLOAT_DTYPE)
     allowed = np.zeros((P, B), dtype=bool)
-    member = np.zeros((P, B), dtype=bool)
+    member = np.zeros((P, B), dtype=bool) if build_member else None
     pvalid = np.zeros(P, dtype=bool)
     bvalid = np.zeros(B, dtype=bool)
     bvalid[:nb] = True
@@ -211,8 +249,9 @@ def tensorize(
             row = encode_allowed_row(brokers, ids, nb, B)
             allowed[np.asarray(rows_i, dtype=np.int64)] = row
 
-    rows, cols = np.nonzero(replicas >= 0)
-    member[rows, replicas[rows, cols]] = True
+    if member is not None:
+        rows, cols = np.nonzero(replicas >= 0)
+        member[rows, replicas[rows, cols]] = True
 
     return DensePlan(
         broker_ids=ids,
@@ -247,7 +286,7 @@ class DeviceArrays:
     nrep_tgt: Any  # [P] int32
     ncons: Any  # [P] dtype
     allowed: Any  # [P, B] bool, or None (all-allowed)
-    member: Any  # [P, B] bool
+    member: Any  # [P, B] bool, or None (lean encode)
     pvalid: Any  # [P] bool
     bvalid: Any  # [B] bool
 
@@ -276,7 +315,7 @@ def to_device(
         nrep_tgt=up(dp.nrep_tgt),
         ncons=up(dp.ncons, dtype),
         allowed=None if all_allowed else up(dp.allowed),
-        member=up(dp.member),
+        member=None if dp.member is None else up(dp.member),
         pvalid=up(dp.pvalid),
         bvalid=up(dp.bvalid),
     )

@@ -260,10 +260,23 @@ def prefix_accept(
     return ok, pos, ok.sum()
 
 
-def batch_pool(
+def pool_frame(
+    loads: Tensor, bvalid: Tensor, nb: Tensor
+) -> Tuple[Tensor, ...]:
+    """The ``[B]``-sized inputs of one scoring pass: ``(avg, F, su, s_i,
+    t_i, live)`` — the average load, each broker's penalty (0 on invalid
+    brokers), the objective and the hot/cold pair frame."""
+    zero = torch.zeros_like(loads)
+    avg = ordered_sum(torch.where(bvalid, loads, zero)) / nb
+    F = torch.where(bvalid, overload_penalty(loads, avg), zero)
+    s_i, t_i, live = pair_frame(loads, bvalid)
+    return avg, F, ordered_sum(F), s_i, t_i, live
+
+
+def rows_pool(
+    frame: Tuple[Tensor, ...],
     loads: Tensor,
     bvalid: Tensor,
-    nb: Tensor,
     rep: Tensor,
     mem: Tensor,
     allowed: Optional[Tensor],
@@ -275,38 +288,30 @@ def batch_pool(
     c_rows: Optional[Tensor] = None,
     lam: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
-    """One batched iteration's candidate pool, before acceptance.
+    """The candidate pool of the rows ``rep`` holds, on their device.
 
-    Scores the current state with ``score`` (``shard_score`` or its plain
-    version), merges the leader winners (strict <, follower wins ties),
-    recovers the follower slots and finishes the pair winners. Returns
-    ``(vals, p, slot, s_, t, w_k, avg, su)`` over the ``K = B + B//2``
-    pool — per-target winners, whose rank-0 candidate keeps the exact
-    termination criterion, then the hot/cold pair winners, which supply
-    distinct partitions, sources and targets — with ``vals`` absolute
-    (su-based, +inf for dead candidates) and ``w_k`` each candidate's
-    applied load delta (the leader premium travels with slot 0,
-    utils.go:96-101). Shared by :func:`session` and the whole-session
-    kernel's plain version (``solvers/pallas_session.py``).
+    Scores the rows with ``score`` (``shard_score`` or its plain version)
+    against ``frame`` (:func:`pool_frame`), merges the leader winners
+    (strict <, follower wins ties), recovers the follower slots and
+    finishes the pair winners. Returns ``(vals_raw, p, slot, s_)`` over
+    the ``K = B + B//2`` pool — per-target winners, then the hot/cold
+    pair winners — with ``vals_raw`` the scores without ``su`` (+inf for
+    dead candidates) and ``p`` a row of ``rep``. A block of rows of a
+    larger table (a shard, a row chunk) gives the winners among its own
+    rows; the sharded session combines blocks with
+    :func:`~kafkabalancer_tpu_torch.parallel.shard_session.combine_pools`
+    before ``su`` is added, so the combined pool is the whole table's.
 
-    ``c_rows [P, B]`` (with the 0-d ``lam``) switches on the scorer's
-    ±λ colocation terms; the winners' slot recovery subtracts the same
+    ``c_rows`` (with the 0-d ``lam``) switches on the scorer's ±λ
+    colocation terms; the winners' slot recovery subtracts the same
     source term, so it finds the slot the scorer scored the winner on.
     """
-    dtype = loads.dtype
+    avg, F, su, s_i, t_i, live = frame
     dev = loads.device
     R = rep.shape[1]
-    B = loads.shape[0]
     inf = float("inf")
     weights = cols[:, 0]
     nrep_cur = cols[:, 1]
-    ncons = cols[:, 3]
-    avg = ordered_sum(torch.where(bvalid, loads, torch.zeros_like(loads))) / nb
-    F = torch.where(
-        bvalid, overload_penalty(loads, avg), torch.zeros_like(loads)
-    )
-    su = ordered_sum(F)
-    s_i, t_i, live = pair_frame(loads, bvalid)
     lam_s = torch.zeros_like(minrep) if lam is None else lam
     vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
         rep, cols, mem, allowed, loads, F, bvalid,
@@ -341,16 +346,69 @@ def batch_pool(
         vpl if allow_leader else None, ppl if allow_leader else None,
         allow_leader=allow_leader,
     )
-
-    vals = torch.cat([su + vals_t, su + vals_p])
+    vals_raw = torch.cat([vals_t, vals_p])
     p = torch.cat([p_t, p_p])
     slot = torch.cat([slot_t, slot_p])
     s_ = torch.cat([rep[p_t, slot_t].long(), s_i])
-    t = torch.cat([torch.arange(B, device=dev), t_i])
+    return vals_raw, p, slot, s_
+
+
+def finish_pool(
+    frame: Tuple[Tensor, ...], vals_raw: Tensor, p: Tensor, slot: Tensor,
+    s_: Tensor, weights: Tensor, nrep_cur: Tensor, ncons: Tensor,
+) -> Tuple[Tensor, ...]:
+    """A whole table's :func:`rows_pool` as :func:`prefix_accept` takes it:
+    ``(vals, p, slot, s_, t, w_k, avg, su)`` with ``vals`` absolute
+    (su-based, +inf for dead candidates), ``t`` the targets and ``w_k``
+    each candidate's applied load shift — the leader premium travels with
+    slot 0 (utils.go:96-101). ``weights``, ``nrep_cur`` and ``ncons``
+    are indexed by ``p``."""
+    avg, _F, su, _s_i, t_i, _live = frame
+    t = torch.cat([torch.arange(vals_raw.shape[0] - t_i.shape[0],
+                                device=t_i.device), t_i])
     w_k = torch.where(
-        slot == 0, weights[p] * (nrep_cur[p].to(dtype) + ncons[p]), weights[p]
+        slot == 0,
+        weights[p] * (nrep_cur[p].to(weights.dtype) + ncons[p]),
+        weights[p],
     )
-    return vals, p, slot, s_, t, w_k, avg, su
+    return su + vals_raw, p, slot, s_, t, w_k, avg, su
+
+
+def batch_pool(
+    loads: Tensor,
+    bvalid: Tensor,
+    nb: Tensor,
+    rep: Tensor,
+    mem: Tensor,
+    allowed: Optional[Tensor],
+    cols: Tensor,
+    minrep: Tensor,
+    score: Callable[..., Tuple[Tensor, ...]],
+    *,
+    allow_leader: bool,
+    c_rows: Optional[Tensor] = None,
+    lam: Optional[Tensor] = None,
+) -> Tuple[Tensor, ...]:
+    """One batched iteration's candidate pool, before acceptance:
+    :func:`pool_frame`, :func:`rows_pool` over the whole table and
+    :func:`finish_pool`.
+
+    Returns ``(vals, p, slot, s_, t, w_k, avg, su)`` over the ``K = B +
+    B//2`` pool — per-target winners, whose rank-0 candidate keeps the
+    exact termination criterion, then the hot/cold pair winners, which
+    supply distinct partitions, sources and targets. Shared by
+    :func:`session` and the whole-session kernel's plain version
+    (``solvers/pallas_session.py``).
+    """
+    frame = pool_frame(loads, bvalid, nb)
+    return finish_pool(
+        frame,
+        *rows_pool(
+            frame, loads, bvalid, rep, mem, allowed, cols, minrep, score,
+            allow_leader=allow_leader, c_rows=c_rows, lam=lam,
+        ),
+        cols[:, 0], cols[:, 1], cols[:, 3],
+    )
 
 
 def single_move(
@@ -442,6 +500,60 @@ def member_from(
     mem = torch.zeros(P * B + 1, dtype=torch.bool, device=replicas.device)
     mem[flat.reshape(-1)] = True
     return mem[: P * B].view(P, B)
+
+
+def accept_commit(
+    pool: Tuple[Tensor, ...],
+    loads: Tensor,
+    bcount: Tensor,
+    log: Tensor,
+    n: int,
+    batch: int,
+    budget: int,
+    max_moves: int,
+    mu: Tensor,
+    cg: Tensor,
+    colo: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Accept a prefix of a :func:`batch_pool` pool (:func:`prefix_accept`)
+    and commit it to the broker-side state in place: ``loads``, the
+    per-broker replica counts ``bcount``, the colocation counts and the
+    move log (rows p | slot | src | tgt, trash column at ``max_moves``).
+    ``colo`` is ``(topic_id [P], counts_flat [T·B], lam)`` for the
+    anti-colocation objective. Returns ``(ok, cnt)``; the caller writes
+    the accepted moves into its replica and membership rows."""
+    vals, p, slot, s_, t, w_k, avg, su = pool
+    dtype = loads.dtype
+    B = loads.shape[0]
+    tid_k = colo_d = None
+    if colo is not None:
+        # each candidate's colocation delta from the pass-start counts;
+        # prefix_accept's (topic, broker) claims keep it exact
+        tid, counts_flat, lam_t = colo
+        tid_k = tid[p]
+        sub_s, _ = colo_terms(counts_flat[tid_k * B + s_], lam_t)
+        _, add_t = colo_terms(counts_flat[tid_k * B + t], lam_t)
+        colo_d = add_t - sub_s
+    ok, pos, cnt = prefix_accept(
+        vals, p, s_, t, w_k, loads, avg, su, mu, cg, n, batch, budget,
+        max_moves, topic=tid_k, colo_d=colo_d,
+    )
+    # commit; rejected candidates add zeros
+    delta = w_k * ok.to(dtype)
+    scatter_add_(loads, s_, -delta)
+    scatter_add_(loads, t, delta)
+    oki = ok.to(torch.int32)
+    scatter_add_(bcount, s_, -oki)
+    scatter_add_(bcount, t, oki)
+    if colo is not None:
+        okd = ok.to(dtype)
+        scatter_add_(counts_flat, tid_k * B + s_, -okd)
+        scatter_add_(counts_flat, tid_k * B + t, okd)
+    logpos = torch.where(ok, pos, max_moves)
+    log[:, logpos] = torch.where(
+        ok, torch.stack([p, slot, s_, t]), torch.full_like(log[:, :1], -1)
+    )
+    return ok, cnt
 
 
 def session(
@@ -542,41 +654,19 @@ def session(
     def step_batch(n: int) -> int:
         bvalid, nb = table()
         colo = dict(c_rows=counts[tid], lam=lam_t) if n_topics else {}
-        vals, p, slot, s_, t, w_k, avg, su = batch_pool(
+        pool = batch_pool(
             loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
             allow_leader=allow_leader, **colo,
         )
-        tid_k = colo_d = None
-        if n_topics:
-            # each candidate's colocation delta from the pass-start
-            # counts; prefix_accept's (topic, broker) claims keep it exact
-            tid_k = tid[p]
-            sub_s, _ = colo_terms(counts_flat[tid_k * B + s_], lam_t)
-            _, add_t = colo_terms(counts_flat[tid_k * B + t], lam_t)
-            colo_d = add_t - sub_s
-        ok, pos, cnt = prefix_accept(
-            vals, p, s_, t, w_k, loads, avg, su, mu, cg, n, batch, budget,
-            max_moves, topic=tid_k, colo_d=colo_d,
+        ok, cnt = accept_commit(
+            pool, loads, bcount, log, n, batch, budget, max_moves, mu, cg,
+            colo=(tid, counts_flat, lam_t) if n_topics else None,
         )
-
-        # commit; rejected candidates add zeros and write to the trash
-        delta = w_k * ok.to(dtype)
-        scatter_add_(loads, s_, -delta)
-        scatter_add_(loads, t, delta)
-        oki = ok.to(torch.int32)
-        scatter_add_(bcount, s_, -oki)
-        scatter_add_(bcount, t, oki)
-        if n_topics:
-            okd = ok.to(dtype)
-            scatter_add_(counts_flat, tid_k * B + s_, -okd)
-            scatter_add_(counts_flat, tid_k * B + t, okd)
+        # rejected candidates write to the trash element
+        _, p, slot, s_, t = pool[:5]
         rep_buf[torch.where(ok, p * R + slot, P * R)] = t.to(rep_buf.dtype)
         mem_buf[torch.where(ok, p * B + s_, P * B)] = False
         mem_buf[torch.where(ok, p * B + t, P * B)] = True
-        logpos = torch.where(ok, pos, max_moves)
-        log[:, logpos] = torch.where(
-            ok, torch.stack([p, slot, s_, t]), torch.full_like(log[:, :1], -1)
-        )
         return int(cnt)
 
     def step_single(n: int) -> int:

@@ -12,14 +12,17 @@ with ``-fused-engine=pallas`` against the reference's
 and the default), ``-fused -rebalance-leader`` (batch 1 and 4),
 ``-solver=tpu``, ``-solver=beam`` (with and without ``-anti-colocation``)
 and ``-fused -fused-batch=4 -anti-colocation`` (with and without
-``-fused-polish``) over the golden inputs.
+``-fused-polish``) and ``-fused -fused-shard`` (with ``-shard-scale``,
+``-fused-polish``, ``-rebalance-leader`` and ``-anti-colocation``) over
+the golden inputs.
 
 Also pinned here: the port imports neither jax nor the JAX package
 (subprocess check), ``-fused``, ``-fused-polish``, ``-fused
 -rebalance-leader``, ``-fused -anti-colocation``, ``-solver=tpu`` and
 ``-solver=beam`` without a GPU exit 3, the colocation session's flag
-checks exit 3 as the reference's do, and flags whose feature is not
-ported exit 3 naming their ROADMAP.md item.
+checks and the shard flags' checks exit 3 as the reference's do, a
+failure on a shard exits 3, and flags whose feature is not ported exit 3
+naming their ROADMAP.md item.
 """
 
 import io
@@ -182,6 +185,36 @@ def test_golden_cli_inputs_new_paths(idx, path, monkeypatch):
     assert got == ref
 
 
+# the sharded session (-fused-shard: one shard per device, the CPU here
+# and the reference's 8 virtual devices) and its scale tier; each flag set
+# also equals the port's plan without the shard flags
+SHARD_PATHS = {
+    "shard": ["-fused", "-fused-shard"],
+    "shard-b4": ["-fused", "-fused-shard", "-fused-batch=4"],
+    "shard-scale": ["-fused", "-fused-shard", "-shard-scale"],
+    "shard-scale-b4": ["-fused", "-fused-shard", "-shard-scale",
+                       "-fused-batch=4"],
+    "shard-polish-leader": ["-fused", "-fused-shard", "-fused-polish",
+                            "-allow-leader", "-fused-batch=4"],
+    "shard-rebalance-leader": ["-fused", "-fused-shard", "-rebalance-leader",
+                               "-fused-batch=4"],
+    "shard-colo": ["-fused", "-fused-shard", "-fused-batch=4",
+                   "-anti-colocation=0.001"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(SHARD_PATHS))
+@pytest.mark.parametrize("idx", range(len(GOLDEN)))
+def test_golden_cli_inputs_sharded(idx, path):
+    argv, stdin = GOLDEN[idx]
+    flags = SHARD_PATHS[path]
+    ref, got = both(argv + flags, stdin)
+    assert got == ref
+    unsharded = [f for f in flags if f not in ("-fused-shard", "-shard-scale")]
+    if "-fused-polish" not in flags:  # polish after the move floor differs
+        assert trun_out(argv + unsharded, stdin) == got
+
+
 def jrun_out(argv, stdin):
     o, e = io.StringIO(), io.StringIO()
     return jrun(io.StringIO(stdin), o, e, ["kafkabalancer"] + argv), o.getvalue()
@@ -206,6 +239,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.solvers.beam\n"
         "import kafkabalancer_tpu_torch.balancer.pipeline\n"
         "import kafkabalancer_tpu_torch.ops.nvcc\n"
+        "import kafkabalancer_tpu_torch.parallel\n"
+        "import kafkabalancer_tpu_torch.parallel.mesh\n"
+        "import kafkabalancer_tpu_torch.parallel.shard_move\n"
+        "import kafkabalancer_tpu_torch.parallel.shard_session\n"
+        "import kafkabalancer_tpu_torch.parallel.sweep\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -240,6 +278,8 @@ def test_fused_without_a_gpu_exits_3(monkeypatch):
         (["-fused", "-anti-colocation=0.001"], "-fused"),
         (["-solver=tpu"], "-solver=tpu"),
         (["-solver=beam"], "-solver=beam"),
+        (["-fused", "-fused-shard"], "-fused"),
+        (["-fused", "-fused-shard", "-shard-scale"], "-fused"),
     ],
 )
 def test_new_paths_without_a_gpu_exit_3(monkeypatch, flags, what):
@@ -290,11 +330,9 @@ def test_polish_with_rebalance_leader_says_it_is_ignored():
     "flag,item",
     [
         ("-metrics-json=m.json", "A1"),
-        ("-fused-shard", "A6"),
         ("-stats", "A1"),
         ("-explain=-", "A1"),
         ("-serve", "A7"),
-        ("-shard-scale", "A6"),
         ("-jax-profile=prof", "A9"),
     ],
 )
@@ -305,6 +343,43 @@ def test_unported_flags_exit_3(flag, item):
     )
     assert rc == 3
     assert "not yet ported" in e.getvalue() and f"ROADMAP.md {item}" in e.getvalue()
+
+
+@pytest.mark.parametrize(
+    "flags,says",
+    [
+        (["-fused-shard"], "-fused-shard requires -fused"),
+        (["-fused", "-shard-scale"], "-shard-scale requires -fused-shard"),
+    ],
+)
+def test_shard_flag_checks_exit_3(flags, says):
+    """The reference's flag checks: the same rc and stdout, exit 3."""
+    argv = ["-input-json", f"-input={FIXTURE}"] + flags
+    ref = jrun_out(argv, "")
+    o, e = io.StringIO(), io.StringIO()
+    got = trun(io.StringIO(""), o, e, ["kafkabalancer"] + argv, device="cpu")
+    assert (got, o.getvalue()) == ref
+    assert got == 3 and says in e.getvalue()
+
+
+def test_shard_engine_failure_exits_3(monkeypatch):
+    """A scoring failure on a shard is a planning failure: exit 3 and no
+    plan (on the CPU through the plain scorer of ``pallas-interpret``)."""
+    from kafkabalancer_tpu_torch.parallel import shard_session
+
+    def broken(*a, **k):
+        raise RuntimeError("scoring failed: test")
+
+    monkeypatch.setattr(shard_session, "shard_score_plain", broken)
+    o, e = io.StringIO(), io.StringIO()
+    rc = trun(
+        io.StringIO(fixture_text()), o, e,
+        ["kafkabalancer", "-input-json", "-fused", "-fused-shard",
+         "-fused-engine=pallas-interpret"], device="cpu",
+    )
+    assert rc == 3
+    assert "shard engine failed" in e.getvalue()
+    assert o.getvalue() == ""
 
 
 @pytest.mark.parametrize(

@@ -540,3 +540,73 @@ def test_beam_move_on_the_card_improves(cuda_device, lam):
     apply_assignment(pl, ppl.partitions[0])
     u1, j1 = objectives(pl)
     assert u1 < u0 - c.min_unbalance or j1 < j0 - c.min_unbalance
+
+
+def plan_moves(opl):
+    return [(p.topic, p.partition, tuple(p.replicas)) for p in (opl.partitions or [])]
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_sharded_plan_on_the_card_matches_single_device(
+    cuda_device, S, scale, allow_leader
+):
+    """``plan_sharded`` on meshes that name the card S times: the card's
+    single-device plan, with the scoring kernel launched S times (times
+    the row chunks) per sharded iteration."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.shard_session import plan_sharded
+
+    mesh = make_mesh(devices=[cuda_device] * S, shape=(1, S))
+    obs.begin_invocation()
+    sk.shard_score.launches = 0
+    got = plan_sharded(synth_cluster(2000, 40, rf=3, seed=5), cfg(allow_leader),
+                       100000, mesh, batch=16, scale=scale, row_chunk=96)
+    iters = obs.REGISTRY.counter_get("shard.session_iterations")
+    chunks = 1 if not scale else -(-(2048 // S) // 96)
+    assert sk.shard_score.launches == S * chunks * iters > 0
+    want = scan.plan(synth_cluster(2000, 40, rf=3, seed=5), cfg(allow_leader),
+                     100000, batch=16, device=cuda_device)
+    assert plan_moves(got) == plan_moves(want)
+
+
+def test_sharded_plan_with_the_kernel_matches_the_plain_scorer(cuda_device):
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.shard_session import plan_sharded
+
+    mesh = make_mesh(devices=[cuda_device] * 2, shape=(1, 2))
+    runs = [
+        plan_moves(plan_sharded(
+            synth_cluster(1500, 30, rf=3, seed=9, zipf_topics=True),
+            cfg(True), 100000, mesh, batch=16, anti_colocation=0.001,
+            polish=True, **kw,
+        ))
+        for kw in ({}, {"scorer": sk.shard_score_plain})
+    ]
+    assert runs[0] and runs[0] == runs[1]
+
+
+def test_sweep_on_the_card_matches_plain_versions(cuda_device):
+    """Engine ``pallas`` (one whole-session launch per scenario) equals
+    ``pallas-interpret`` on the card; engine ``xla`` with the scoring
+    kernel equals it with the plain scorer."""
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+    from kafkabalancer_tpu_torch.parallel.sweep import sweep
+
+    pl = synth_cluster(1000, 20, rf=3, seed=11)
+    obs_ = sorted({b for p in pl.partitions for b in p.replicas})
+    scen = [obs_, obs_ + [max(obs_) + 1], obs_[1:]]
+    mesh = make_mesh(devices=[cuda_device])
+
+    def run(**kw):
+        res = sweep(pl, cfg(), scen, max_reassign=500, mesh=mesh, batch=16, **kw)
+        return [(r.feasible, r.completed, r.n_evacuations, r.n_moves,
+                 r.unbalance, r.replicas) for r in res]
+
+    ps.pallas_session.launches = 0
+    kernel = run(engine="pallas")
+    assert ps.pallas_session.launches == len(scen)
+    assert kernel == run(engine="pallas-interpret")
+    assert run(engine="xla") == run(engine="xla", scorer=sk.shard_score_plain)
