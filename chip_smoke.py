@@ -108,8 +108,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each scenario's feasibility, evacuations, moves and unbalance, the
    best scenario, the wall and the launches.
 
+13. The planning daemon on the card (``serve/``), on phase 3's cluster:
+   a. the daemon (``-serve``'s defaults: a lane per card; every request
+   runs solo) in a thread of this process on a private socket;
+   its warm seconds (the kernel libraries are already loaded in this
+   process), and the seconds a fresh ``python -m kafkabalancer_tpu_torch
+   -serve`` process takes to warm (torch import, CUDA context, kernel
+   load from the build cache). b/c. phase 3's and 3b's flags from a
+   fresh client process: the plans of phases 3 and 3b byte for byte,
+   with phase 3's K1 launches and one B2 launch added by the served
+   requests. d. the same two as fresh ``-no-daemon`` processes, wall
+   against the served client's wall. e. four fresh clients at once, each
+   on another seeded 10k x 100 cluster, against a second daemon: each
+   plan equal to that cluster's in-process plan on the card, and the K1
+   launches of the four served requests equal to the sum of the four
+   in-process runs'; each client's wall. f. five rounds of the
+   reference's deployment loop (``-solver=tpu -max-reassign=1
+   -min-unbalance=1e-7``, the move
+   applied to the file, again) served from a resident session, each move
+   equal to the in-process move on the same file; session hits, row
+   splices and the served wall per round. g. a served client imports
+   neither torch nor numpy. h. the shutdown op ends each daemon thread
+   with 0; each daemon's request count equals the requests sent to it,
+   its own fallback count holds only the session ladder's expected
+   re-syncs, and every fresh client reports ``cli.served`` 1 and no
+   in-process fallback. Every fresh client runs ``python -m kafkabalancer_tpu_torch``
+   (through ``runpy``, with an exit hook that prints its counters).
+
 Each path's launch counts are set to 0 just before it runs and read just
-after. Phases 6-12 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+after. Phases 6-13 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -148,9 +175,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps, flush):
+def cuda_ms(fn, reps, flush, warmup=2):
     """``(device ms, host ms)`` of one call of ``fn()``, medians over
-    ``reps`` runs after two warm-up calls.
+    ``reps`` runs after ``warmup`` warm-up calls.
 
     Device: a CUDA event pair around one call with a cold L2 (``flush()``
     first). A spin kernel queued before the first event keeps the card
@@ -160,7 +187,7 @@ def cuda_ms(fn, reps, flush):
     queued."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     dev, host = [], []
@@ -549,7 +576,9 @@ def check_b2(args, kw, label, main_batch, flush):
         lambda: ps.launch(next(states), *a[11:16], k["max_moves"], False),
         reps, flush,
     )
-    plain_ms, _ = cuda_ms(lambda: ps.pallas_session_plain(*a, **k), 1, flush)
+    # no warm-up: the check above just ran this very call (seconds each)
+    plain_ms, _ = cuda_ms(lambda: ps.pallas_session_plain(*a, **k), 1, flush,
+                          warmup=0)
     # the torch session (engine="xla") on the same inputs, host clock
     member = b2_state(a, k).member
     s0 = obs.REGISTRY.counter_get("solver.session_seconds")
@@ -869,7 +898,7 @@ def phase_pallas_path(dev, xla_plan, path):
         "identical plan")
     log(f"pallas path: the plan equals the -fused-engine=xla plan: "
         f"{out.getvalue() == xla_plan}")
-    return launches
+    return launches, out.getvalue()
 
 
 def phase_scale_pallas(dev):
@@ -1680,6 +1709,328 @@ def phase_sweep(dev, path):
     return launches
 
 
+# phase 13: a fresh client process runs the package's entry point as
+# ``python -m kafkabalancer_tpu_torch`` does (runpy), and an exit hook
+# prints one line on stderr: its serve counters (``cli.served``, the
+# ``serve.fallbacks.*`` reasons) and the heavy modules it imported
+CLIENT = (
+    "import atexit, json, runpy, sys\n"
+    "def report():\n"
+    "    heavy = sorted({m.split('.')[0] for m in sys.modules}\n"
+    "                   & {'torch', 'numpy', 'jax'})\n"
+    "    from kafkabalancer_tpu_torch import obs\n"
+    "    snap = obs.REGISTRY.snapshot().get('counters', {})\n"
+    "    c = {k: v for k, v in snap.items()\n"
+    "         if k == 'cli.served' or k.startswith('serve.fallbacks.')}\n"
+    "    print('CLIENT ' + json.dumps({'counters': c, 'heavy': heavy}),\n"
+    "          file=sys.stderr, flush=True)\n"
+    "atexit.register(report)\n"
+    "sys.argv = ['kafkabalancer_tpu_torch'] + sys.argv[1:]\n"
+    "runpy.run_module('kafkabalancer_tpu_torch', run_name='__main__',\n"
+    "                 alter_sys=True)\n"
+)
+# the client's fallback reasons that end in planning in process; the
+# session ladder's re-sync notes (session_resync_full,
+# session_digest_mismatch) are counted on the way to a served answer
+LOCAL_FALLBACKS = ("daemon_down", "handshake_mismatch", "frame_cap",
+                   "declined", "transport_error", "daemon_wedged", "overload")
+CARD = ""
+
+
+def start_client(args, served=True):
+    """A fresh client process; ``served`` runs it through :data:`CLIENT`."""
+    cmd = ([sys.executable, "-c", CLIENT] if served
+           else [sys.executable, "-m", "kafkabalancer_tpu_torch"]) + args
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_client(proc, t0, what, timeout=300):
+    """Wait for a client started at ``t0``: ``(rc, stdout, stderr, wall s,
+    client report or None)``; a client that served must report
+    ``cli.served`` 1, no in-process fallback and no torch/numpy import."""
+    out, err = proc.communicate(timeout=timeout)
+    wall = time.perf_counter() - t0
+    report = None
+    for line in err.splitlines():
+        if line.startswith("CLIENT "):
+            report = json.loads(line[len("CLIENT "):])
+    if proc.returncode != 0:
+        fail(f"{what}: client exited {proc.returncode}: {err[-2000:]}")
+    if report is not None:
+        c = report["counters"]
+        if c.get("cli.served") != 1 or any(
+            c.get(f"serve.fallbacks.{r}") for r in LOCAL_FALLBACKS
+        ):
+            fail(f"{what}: the request was not served: {c}")
+        if report["heavy"]:
+            fail(f"{what}: the client imported {report['heavy']}")
+    return proc.returncode, out, err, wall, report
+
+
+def finish_clients(procs, t0, what):
+    """:func:`finish_client` for clients running at once: each waited on
+    by a thread of its own, so each wall ends when that client exits and
+    not when the waits before it in the list have returned."""
+    import threading
+
+    results = [None] * len(procs)
+
+    def wait(k):
+        try:
+            results[k] = finish_client(procs[k], t0, f"{what} {k}")
+        except SystemExit as exc:
+            results[k] = exc
+
+    threads = [threading.Thread(target=wait, args=(k,))
+               for k in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for res in results:
+        if isinstance(res, SystemExit):
+            raise res
+    return results
+
+
+def run_client(args, what, served=True):
+    t0 = time.perf_counter()
+    return finish_client(start_client(args, served), t0, what)
+
+
+def serving_daemon(sock, **kw):
+    """The port's daemon on ``sock`` in a thread of this process (CUDA
+    lanes, -serve's defaults); returns ``(daemon, thread, rc_box, logs)``
+    once it answers hello."""
+    import threading
+
+    from kafkabalancer_tpu_torch.serve import client
+    from kafkabalancer_tpu_torch.serve.daemon import Daemon
+
+    logs = []
+    d = Daemon(sock, log=logs.append, idle_timeout=0, lanes=0, batching=True,
+               **kw)
+    rc_box = []
+    t = threading.Thread(target=lambda: rc_box.append(d.serve_forever()),
+                         name="smoke-daemon", daemon=True)
+    t.start()
+    deadline = time.monotonic() + 120
+    while client.daemon_alive(sock) is None:
+        if time.monotonic() > deadline or not t.is_alive():
+            fail(f"the daemon on {sock} never answered: {logs}")
+        time.sleep(0.05)
+    return d, t, rc_box, logs
+
+
+def stop_daemon(sock, d, t, rc_box, logs, sent, fallbacks, what):
+    """Phase 13h for one daemon: the shutdown op, the thread's 0, the
+    request count against the requests sent, and the daemon's own
+    fallback reasons against ``fallbacks``, the session ladder's
+    expected re-syncs."""
+    from kafkabalancer_tpu_torch.serve import client
+
+    if not client.request_shutdown(sock):
+        fail(f"{what}: the shutdown op was not acknowledged")
+    t.join(120)
+    if t.is_alive() or rc_box != [0]:
+        fail(f"{what}: the daemon thread did not exit with 0: {rc_box} {logs}")
+    if d._requests != sent:
+        fail(f"{what}: the daemon served {d._requests} requests, {sent} sent")
+    if d._fallbacks != fallbacks:
+        fail(f"{what}: the daemon counted fallbacks {d._fallbacks}, "
+             f"expected {fallbacks}")
+    log(f"serve {what}: shut down with 0 after {d._requests} requests "
+        f"({sent} sent), daemon-side fallbacks {d._fallbacks}")
+
+
+def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
+    """Phase 13: the planning daemon on the card (see the module
+    docstring); returns the served paths' launch counts."""
+    import shutil
+    import tempfile
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.serve import client
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    t_phase = time.perf_counter()
+    sock_dir = tempfile.mkdtemp(prefix="kbt-")
+    try:
+        sock = os.path.join(sock_dir, "a.sock")
+        # 13a: a fresh -serve process warms (build cache on disk from
+        # phase 1), then the daemon of this process
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kafkabalancer_tpu_torch", "-serve",
+             f"-serve-socket={os.path.join(sock_dir, 'fresh.sock')}",
+             "-serve-idle-timeout=300"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        fresh_sock = os.path.join(sock_dir, "fresh.sock")
+        while True:
+            hello = client.daemon_alive(fresh_sock)
+            if hello is not None and not hello.get("warming"):
+                break
+            if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                proc.kill()
+                fail(f"the -serve process never warmed: "
+                     f"{proc.communicate()[1][-2000:]}")
+            time.sleep(0.05)
+        fresh_warm = time.perf_counter() - t0
+        client.request_shutdown(fresh_sock)
+        _out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0 or "serve: warm in" not in err:
+            fail(f"the -serve process exited {proc.returncode}: {err[-2000:]}")
+        warm_line = [x for x in err.splitlines() if "serve: warm in" in x][-1]
+        log(f"serve 13a [{CARD}]: a fresh -serve process answered warm after "
+            f"{fresh_warm} s from its start ({warm_line.split('serve: ')[-1]})")
+
+        d, t, rc_box, logs = serving_daemon(sock)
+        if not d._warm_done.wait(240):
+            fail("the in-process daemon never finished its warm body")
+        log(f"serve 13a [{CARD}]: in-process daemon warm body "
+            f"{d.warm_seconds} s (kernel libraries already loaded by phase 1); "
+            f"{[m for m in logs if 'lane' in m]}")
+
+        fused_args = ["-input-json", "-input", path, "-fused",
+                      "-fused-batch=100", f"-max-reassign={MAIN_REASSIGN}",
+                      "-min-unbalance=1e-7"]
+        pallas_args = fused_args + ["-fused-engine=pallas"]
+        sent = 0
+        # 13b/13c: served from fresh client processes, each path's counts
+        # zeroed just before it
+        walls = {}
+        counts = {}
+        for key, args, want, counter, want_n in (
+            ("fused", fused_args, xla_plan, sk.shard_score, k1_main),
+            ("pallas", pallas_args, pallas_plan, ps.pallas_session, b2_main),
+        ):
+            counter.launches = 0
+            rc, out, _err, wall, _rep = run_client(
+                args + [f"-serve-socket={sock}"], f"served {key}")
+            sent += 1
+            counts[key] = counter.launches
+            if out != want:
+                fail(f"served {key}: the plan differs from the in-process one")
+            if counts[key] != want_n:
+                fail(f"served {key}: {counts[key]} {counter.__name__} "
+                     f"launches, the in-process path had {want_n}")
+            walls[key] = wall
+            log(f"serve 13{'b' if key == 'fused' else 'c'} [{CARD}]: served "
+                f"{key} plan equals phase {'3' if key == 'fused' else '3b'}'s, "
+                f"{counts[key]} {counter.__name__} launches, client wall "
+                f"{wall} s")
+        # 13d: the same two as fresh -no-daemon processes
+        for key, args, want in (("fused", fused_args, xla_plan),
+                                ("pallas", pallas_args, pallas_plan)):
+            rc, out, _err, wall, _rep = run_client(
+                args + ["-no-daemon"], f"fresh {key}", served=False)
+            if out != want:
+                fail(f"fresh -no-daemon {key}: the plan differs")
+            log(f"serve 13d [{CARD}]: {key}: fresh -no-daemon process "
+                f"{wall} s, served client process {walls[key]} s")
+
+        # 13f: the deployment loop, five rounds on a copy of the cluster
+        loop_path = os.path.join("chiprun_out", "smoke_loop_cluster.json")
+        shutil.copyfile(path, loop_path)
+        loop_args = ["-input-json", "-input", loop_path, "-solver=tpu",
+                     "-max-reassign=1", "-min-unbalance=1e-7"]
+        for rnd in range(5):
+            rc, want, _e, _w = run_cli(loop_args + ["-no-daemon"])
+            _rc, out, _err, wall, _rep = run_client(
+                loop_args + [f"-serve-socket={sock}"], f"loop round {rnd}")
+            sent += 1
+            if rc != 0 or out != want or not json.loads(out).get("partitions"):
+                fail(f"loop round {rnd}: the served move differs from the "
+                     f"in-process move (or none)")
+            with open(loop_path) as fh:
+                text = fh.read()
+            pl = get_partition_list_from_reader(io.StringIO(text), True)
+            moved = {(r["topic"], r["partition"]): r["replicas"]
+                     for r in json.loads(out)["partitions"]}
+            for p in pl.partitions:
+                p.replicas = moved.get((p.topic, p.partition), p.replicas)
+            with open(loop_path, "w") as fh:
+                fh.write(plan_text(pl))
+            ss = d.sessions.stats()
+            cache = d._core_snapshot()["cache"]
+            log(f"serve 13f [{CARD}]: round {rnd}: served move equals the "
+                f"in-process move, client wall {wall} s; sessions registered "
+                f"{ss['registered']}, delta hits {ss['delta_hits']}, row "
+                f"resyncs {ss['resyncs_rows']}, tensorize rows reused "
+                f"{cache['rows_reused']} (cache hits {cache['hits']})")
+        if d.sessions.stats()["delta_hits"] != 4:
+            fail("loop: rounds 2-5 were not served from the resident session")
+
+        # 13g: the client path imports neither torch nor numpy (checked by
+        # finish_client for every served client; this one says so)
+        _rc, out, _err, wall, rep = run_client(
+            fused_args + [f"-serve-socket={sock}"], "client path")
+        sent += 1
+        if out != xla_plan:
+            fail("client path: the plan differs")
+        log(f"serve 13g: a served client imported {rep['heavy'] or 'neither'} "
+            f"torch nor numpy; its counters {rep['counters']}")
+        # the session ladder on daemon A (sessions are keyed by the file
+        # and the planning flags): 13b, 13c and 13f's first round each
+        # find no session; 13g sends 13b's unchanged file again, whose
+        # session has already applied the plan it served, so the digest
+        # differs and the client re-sends the whole file (served all
+        # the same)
+        stop_daemon(sock, d, t, rc_box, logs, sent,
+                    {"session_absent": 3, "session_digest_mismatch": 1},
+                    "(daemon A)")
+
+        # 13e: four clusters of the bucket, four clients at once; the
+        # in-process runs' K1 launches counted one by one
+        paths, wants, k1_solo = [], [], []
+        for k in range(4):
+            pk = os.path.join("chiprun_out", f"smoke_batch_{k}.json")
+            with open(pk, "w") as fh:
+                fh.write(plan_text(synth_cluster(*MAIN_SHAPE, rf=3,
+                                                 seed=SEED + 10 + k)))
+            sk.shard_score.launches = 0
+            rc, want, _e, _w = run_cli(["-input-json", "-input", pk]
+                                       + fused_args[3:] + ["-no-daemon"])
+            k1_solo.append(sk.shard_score.launches)
+            if rc != 0:
+                fail(f"concurrent cluster {k}: in-process rc {rc}")
+            paths.append(pk)
+            wants.append(want)
+        sock_b = os.path.join(sock_dir, "b.sock")
+        d, t, rc_box, logs = serving_daemon(sock_b)
+        d._warm_done.wait(240)
+        sk.shard_score.launches = 0
+        t0 = time.perf_counter()
+        procs = [start_client(["-input-json", "-input", pk] + fused_args[3:]
+                              + [f"-serve-socket={sock_b}"]) for pk in paths]
+        results = finish_clients(procs, t0, "concurrent client")
+        all_wall = time.perf_counter() - t0
+        counts["concurrent"] = sk.shard_score.launches
+        for k, res in enumerate(results):
+            if res[1] != wants[k]:
+                fail(f"concurrent client {k}: the served plan differs from "
+                     f"the cluster's in-process plan")
+        if counts["concurrent"] != sum(k1_solo):
+            fail(f"concurrent: the four served requests launched shard_score "
+                 f"{counts['concurrent']} times, the four in-process runs "
+                 f"{k1_solo}")
+        log(f"serve 13e [{CARD}]: four concurrent clients, each plan equal to "
+            f"its in-process plan; shard_score launches {counts['concurrent']} "
+            f"= {' + '.join(str(n) for n in k1_solo)} of the in-process runs; "
+            f"client walls {[r[3] for r in results]} s (all four in {all_wall} "
+            f"s)")
+        stop_daemon(sock_b, d, t, rc_box, logs, 4, {"session_absent": 4},
+                    "(daemon B)")
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    log(f"serve: phase 13 took {time.perf_counter() - t_phase} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1691,8 +2042,10 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-        f"nvidia-smi: {smi.stderr.strip()}")
+    global CARD
+    CARD = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"nvidia-smi: {smi.stderr.strip()}")
+    log(CARD)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     dev = torch.device("cuda:0")
@@ -1739,7 +2092,7 @@ def main() -> int:
     # phase 3: the main path, counts zeroed just before and read just after
     launches, xla_plan, cluster_path, u_move = phase_main_path(dev)
     # phase 3b: the whole-session kernel's path, the same
-    b2_launches = phase_pallas_path(dev, xla_plan, cluster_path)
+    b2_launches, pallas_plan = phase_pallas_path(dev, xla_plan, cluster_path)
     done("3/3b")
 
     # phases 6-8: the headline configuration (polish), the fused leader
@@ -1764,6 +2117,12 @@ def main() -> int:
     done(11)
     sweep_launches = phase_sweep(dev, cluster_path)
     done(12)
+
+    # phase 13: the planning daemon, each served path's counts zeroed just
+    # before it
+    serve_launches = phase_serve(cluster_path, xla_plan, launches,
+                                 pallas_plan, b2_launches)
+    done(13)
 
     # phase 4: scale
     phase_scale(dev)
@@ -1790,6 +2149,9 @@ def main() -> int:
                 colo_launches["pallas"],
             **shard_launches,
             "12: sweep engine=xla batch=100": sweep_launches["xla"][0],
+            "13b: served -fused -fused-batch=100": serve_launches["fused"],
+            "13e: four concurrent served 10k x 100 -fused requests":
+                serve_launches["concurrent"],
         },
         "colocation_variant": k1_colo,
         "shard_shapes": shard_times,
@@ -1810,6 +2172,7 @@ def main() -> int:
             "6: headline, -fused-engine=pallas": headline["pallas"][1],
             "12: sweep engine=pallas (one per scenario)":
                 sweep_launches["pallas"][1],
+            "13c: served -fused -fused-engine=pallas": serve_launches["pallas"],
         },
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],

@@ -30,7 +30,10 @@ from kafkabalancer_tpu_torch.models import (  # noqa: F401
     default_rebalance_config,
 )
 
-__version__ = "0.1.0"
+# the "+torch" suffix keeps this package's planning daemon and clients
+# apart from the JAX package's: each client answers only to a daemon of
+# its own version (serve/client.py)
+__version__ = "0.1.0+torch"
 
 __all__ = [
     "Balance",

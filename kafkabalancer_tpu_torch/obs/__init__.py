@@ -10,10 +10,15 @@ path calls:
 - ``obs.hist`` (obs/hist.py) — the streaming histograms the registry
   keeps;
 - ``obs.convergence`` (obs/convergence.py) — the plan-outcome slot the
-  balancer steps note their decline reasons into.
+  balancer steps note their decline reasons into, and the mutation tap
+  a daemon's resident session mirrors applied moves through;
+- ``obs.flight`` (obs/flight.py) — the planning daemon's always-on
+  flight recorder, fed through the tracer's observer hook;
+- ``obs.edge`` (obs/edge.py) — a forwarding client's phase timings and
+  trace context.
 
 The exporters (``-stats``, ``-metrics-json``, ``-trace``, ``-explain``)
-and the daemon's flight recorder are not ported yet (ROADMAP.md).
+are not ported yet (ROADMAP.md A1).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional
 
-from kafkabalancer_tpu_torch.obs import convergence, hist  # noqa: F401
+from kafkabalancer_tpu_torch.obs import convergence, edge, flight, hist  # noqa: F401
 from kafkabalancer_tpu_torch.obs.metrics import (  # noqa: F401
     REGISTRY,
     SCHEMA,
@@ -50,9 +55,8 @@ tracer = TRACER
 # reset would wipe another request's attribution mid-export, so
 # begin_invocation keeps the daemon-lifetime stores instead. Counters
 # then read as daemon-lifetime totals — which is exactly the right
-# denominator for throughput attribution (serve.lane_busy_s,
-# serve.microbatched). The stateless CLI and the single-lane daemon
-# never set this.
+# denominator for throughput attribution (serve.lane_busy_s). The
+# stateless CLI and the single-lane daemon never set this.
 _shared_registry = False
 # tracing requests in flight (shared mode only): the tracer stays
 # enabled while ANY -stats/-metrics-json/-trace request runs and drops

@@ -38,6 +38,7 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 # nvcc's output (resource usage with -Xptxas -v) and seconds of the last
 # build of each source, by file name
 build_logs: Dict[str, str] = {}
@@ -136,3 +137,11 @@ def load(
                 bind(lib)
             _libs[name] = lib
     return lib
+
+
+def count_launch(wrapper: Callable[..., object]) -> None:
+    """Add one to a kernel wrapper's ``launches`` counter. Under a lock:
+    the planning daemon's request threads launch kernels concurrently,
+    and ``wrapper.launches += 1`` is a read-modify-write."""
+    with _count_lock:
+        wrapper.launches += 1  # type: ignore[attr-defined]

@@ -23,6 +23,7 @@ Conventions:
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Iterable, List, Optional, Sequence
 
@@ -140,6 +141,54 @@ def encode_allowed_row(
     return row
 
 
+def dense_replica_row(
+    replicas: Sequence[int], ids: np.ndarray
+) -> Optional[np.ndarray]:
+    """Broker IDs → dense universe indices for ONE partition's replica
+    list, or None when any ID is outside the universe. The per-row spec
+    of the id→index rule; the full encode's vectorized searchsorted pass
+    implements the same mapping, and the incremental patch path of the
+    daemon's row cache (serve/cache.py) uses the None case to detect
+    vocabulary drift and fall back to the full encode."""
+    nb = len(ids)
+    want = np.asarray(replicas, dtype=np.int64)
+    pos = np.searchsorted(ids, want)
+    if want.size and (
+        np.any(pos >= nb) or np.any(ids[np.minimum(pos, nb - 1)] != want)
+    ):
+        return None
+    return pos.astype(np.int32)
+
+
+# Optional incremental row cache (serve/cache.py TensorizeRowCache or any
+# duck-typed equivalent), installed by the planning daemon so the outer
+# loop's mostly-unchanged input re-encodes only its changed rows. Typed
+# Any to keep the layering: ops/ does not import serve/.
+_row_cache: Optional[Any] = None
+# per-thread override: each lane of a multi-lane daemon (serve/lanes.py)
+# and each resident session installs its own; everything else falls
+# through to the process-wide cache
+_tls = threading.local()
+
+
+def set_row_cache(cache: Optional[Any]) -> None:
+    """Install (or, with None, remove) the process-wide incremental
+    tensorize cache. The CLI never installs one; the daemon does."""
+    global _row_cache
+    _row_cache = cache
+
+
+def set_thread_row_cache(cache: Optional[Any]) -> None:
+    """Install (or clear) THIS thread's row cache, overriding the
+    process-wide one."""
+    _tls.row_cache = cache
+
+
+def row_cache() -> Optional[Any]:
+    cache = getattr(_tls, "row_cache", None)
+    return cache if cache is not None else _row_cache
+
+
 def tensorize(
     pl: PartitionList,
     cfg: Optional[RebalanceConfig] = None,
@@ -181,6 +230,27 @@ def tensorize(
         P = p_bucket
     R = next_bucket(rmax, max(2, min_replica_bucket))
     B = next_bucket(nb, 8)
+
+    cache = row_cache()
+    if cache is not None and build_member:
+        cached = cache.lookup(parts, ids, P, R, B)
+        if cached is not None:
+            a = cached["arrays"]
+            return DensePlan(
+                broker_ids=ids,
+                weights=a["weights"],
+                replicas=a["replicas"],
+                nrep_cur=a["nrep_cur"],
+                nrep_tgt=a["nrep_tgt"],
+                ncons=a["ncons"],
+                allowed=a["allowed"],
+                member=a["member"],
+                pvalid=a["pvalid"],
+                bvalid=a["bvalid"],
+                topic_id=a["topic_id"],
+                topics=cached["topics"],
+                partitions=parts,
+            )
 
     weights = np.zeros(P, dtype=HOST_FLOAT_DTYPE)
     replicas = np.full((P, R), -1, dtype=np.int32)
@@ -252,6 +322,24 @@ def tensorize(
     if member is not None:
         rows, cols = np.nonzero(replicas >= 0)
         member[rows, replicas[rows, cols]] = True
+
+    if cache is not None and member is not None:
+        cache.prime(
+            parts, ids, P, R, B,
+            {
+                "weights": weights,
+                "replicas": replicas,
+                "nrep_cur": nrep_cur,
+                "nrep_tgt": nrep_tgt,
+                "ncons": ncons,
+                "allowed": allowed,
+                "member": member,
+                "pvalid": pvalid,
+                "bvalid": bvalid,
+                "topic_id": topic_id,
+            },
+            topics,
+        )
 
     return DensePlan(
         broker_ids=ids,

@@ -226,7 +226,7 @@ def _launch(
     if err != 0:
         msg = lib.shard_score_error_string(err).decode()
         raise RuntimeError(f"shard_score kernel launch failed: {msg} ({err})")
-    shard_score.launches += 1
+    nvcc.count_launch(shard_score)
     return vf, pf, vl, pl_, vpf, ppf, vpl, ppl
 
 

@@ -1,0 +1,2016 @@
+"""The persistent planning daemon (``-serve``).
+
+One long-lived process owns everything a fresh invocation of this
+package pays again: the torch import, the CUDA context, the two kernel
+libraries (built by nvcc on first use and loaded once, ``ops/nvcc.py``)
+and the incremental tensorize cache (serve/cache.py). Requests arrive
+as canonical flag lists over a unix socket (serve/protocol.py) and run
+through the very same ``cli.run`` the in-process path uses, on the
+request's lane device — the response relays its stdout/stderr/exit code
+verbatim, so the ``kafka-reassign-partitions.sh`` contract and the outer
+loop are unchanged.
+
+Structure:
+
+- an accept loop (one thread per connection) that answers ``hello``
+  liveness handshakes immediately and enqueues ``plan`` requests;
+- a dispatcher: the single-lane :class:`Coalescer` (``-serve-lanes=1``,
+  or one device) that serializes planning, or the multi-lane
+  ``LaneScheduler`` (serve/lanes.py) with one lane per GPU. Every
+  request runs solo, as its own session (serve/lanes.py says why this
+  package does not batch requests). Each request runs on its own named
+  thread (``serve-req-N``) so its spans render on their own track;
+- request coalescing: when requests queue up concurrently, the
+  dispatcher probes each waiting request's shape bucket
+  (``ops.runtime.prefetch_hints``) and drains all same-bucket requests
+  into one dispatch window. The probe runs only under contention;
+- resident cluster sessions (serve/sessions.py, protocol v2): the outer
+  loop's steady-state request ships a digest, not the cluster;
+- an idle-timeout shutdown, a pidfile next to the socket, and stale
+  socket handling (a dead daemon's socket file is unlinked at startup;
+  a live one refuses the second daemon).
+
+Devices: ``Daemon(devices=None)`` takes every visible CUDA device, one
+lane each; without a card it has none, and every request that needs the
+device exits 3 exactly as in process — the daemon never plans on the
+CPU unless it was given CPU devices (``devices=["cpu"]``, as the tests
+do). The warm thread builds and loads both kernels; a kernel that fails
+to build or load is logged, and each request that needs it then fails
+on its own (exit 3), never falling back to the plain version.
+
+Observability: daemon-lifetime counters ride into every request's
+registry as gauges (``served: true``, ``serve.requests``,
+``serve.coalesced``, ``serve.cache_hits``). The daemon also records
+ALWAYS-ON live telemetry: every span site feeds the tracer's observer
+hook (obs/trace.py) into streaming per-phase histograms (obs/hist.py —
+``serve.phase.*``, ``serve.request_s``) and the bounded flight recorder
+(obs/flight.py), scraped live through the ``stats`` / ``dump-trace``
+protocol ops without touching the plan dispatcher, and auto-dumped on
+daemon-side crashes or requests over ``-serve-slow-ms``.
+
+Not in this package yet (ROADMAP.md A7b): speculative plan-ahead, the
+``-watch`` controller and the warm session tier; the scrape document
+keeps their blocks, switched off.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import signal
+import socket
+import sys
+import threading
+import time
+from collections import deque
+from typing import (
+    Any,
+    Callable,
+    Deque,
+    Dict,
+    Iterator,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
+
+from kafkabalancer_tpu_torch import __version__, obs
+from kafkabalancer_tpu_torch.obs.edge import FOOTER_SPAN_CAP
+from kafkabalancer_tpu_torch.obs.flight import PHASE_OF_SPAN, FlightRecorder
+from kafkabalancer_tpu_torch.obs.hist import OTHER_LABEL
+from kafkabalancer_tpu_torch.obs.trace import Span
+from kafkabalancer_tpu_torch.serve import faults
+from kafkabalancer_tpu_torch.serve.admission import AdmissionController
+from kafkabalancer_tpu_torch.serve.devmem import device_memory_stats
+from kafkabalancer_tpu_torch.serve.protocol import (
+    PROTO_V2,
+    PROTO_VERSION,
+    STATS_SCHEMA,
+    pidfile_path,
+    read_frame,
+    read_frame2,
+    write_frame,
+    write_frame2,
+)
+
+BucketKey = Tuple[int, int, int, bool]
+LogFn = Callable[[str], None]
+
+# a connection sitting in a queued/coalesced plan can legitimately wait
+# minutes for the device; the read timeout only bounds DEAD peers
+PLAN_CONNECTION_TIMEOUT_S = 7200.0
+
+# a plan arriving during startup waits for the dispatcher (built on the
+# warm thread); far past this the warm thread is presumed wedged and
+# the request is refused
+DISPATCHER_WAIT_S = 600.0
+
+# the per-tenant label families the daemon feeds (obs.metrics registry,
+# bounded top-K + "other"); created at startup so the configured
+# tenant cap applies before the first observation
+_TENANT_HIST_FAMILIES = (
+    "serve.request_s", "serve.phase.queue", "serve.edge_ms",
+)
+_TENANT_COUNTER_FAMILIES = (
+    "serve.requests", "serve.crashed_requests", "serve.delta_hits",
+    "serve.resyncs_rows", "serve.resyncs_full", "serve.fallbacks",
+    "serve.sheds",
+)
+
+# the scrape blocks of the features this package does not have yet
+# (ROADMAP.md A7b), with the reference's key sets, switched off
+_PAGING_OFF: Dict[str, Any] = {
+    "enabled": False, "dir": "", "cap_bytes": 0,
+    "spills": 0, "adopted": 0, "restores": 0, "restore_hits": 0,
+    "corrupt_drops": 0, "evictions": 0, "write_failures": 0,
+    "warm_entries": 0, "warm_bytes": 0,
+}
+_SPECULATION_OFF: Dict[str, Any] = {
+    "enabled": False, "attempts": 0, "hits": 0, "misses": 0,
+    "poisoned": 0, "aborted": 0, "deferred": 0, "wasted_dispatches": 0,
+    "memos": 0, "inflight": False,
+}
+_WATCH_OFF: Dict[str, Any] = {
+    "enabled": False, "conn": None, "emit": None, "ticks": 0, "reads": 0,
+    "errors": 0, "events": 0, "resyncs": 0, "plans_emitted": 0,
+    "noop_plans": 0, "spec_hits": 0, "last_read_age_s": None,
+    "last_plan_s": None, "last_event_lag_s": None, "state_digest": None,
+}
+
+
+def _pid_alive(pid: int) -> bool:
+    """Is ``pid`` a live process? (signal 0 probe; a process we may not
+    signal still counts as alive). A ZOMBIE is dead for our purposes — a
+    SIGKILL'd daemon whose parent never reaped it still answers the
+    signal probe but cannot own a socket, and must not block a
+    restart."""
+    if pid <= 0:
+        return False
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    except OSError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            # field 3, after the parenthesized comm (which may itself
+            # contain spaces/parens): parse from the LAST ')'
+            state = f.read().rsplit(")", 1)[1].split()[0]
+        return state != "Z"
+    except (OSError, IndexError):
+        return True  # no procfs: the signal probe's verdict stands
+
+
+def _pid_looks_like_daemon(pid: int) -> bool:
+    """Does ``pid``'s command line look like a daemon? Guards the
+    takeover refusal against PID RECYCLING: a SIGKILL'd daemon's recorded
+    pid can be reborn as an unrelated process. An unreadable cmdline
+    says True — refusing when unsure beats hijacking a live daemon."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmd = f.read()
+    except OSError:
+        return True
+    return b"kafkabalancer" in cmd or b"-serve" in cmd
+
+
+def _deadline_of(hdr: Dict[str, Any]) -> Optional[float]:
+    """A request header's ``deadline_ms`` budget as an absolute
+    monotonic deadline (None when absent/invalid — no deadline)."""
+    ms = hdr.get("deadline_ms")
+    if isinstance(ms, bool) or not isinstance(ms, (int, float)) or ms <= 0:
+        return None
+    return time.monotonic() + float(ms) / 1000.0
+
+
+def _argv_value(argv: List[str], name: str) -> Optional[str]:
+    """Last value of ``-name=value`` in a canonical argv (the client
+    emits every forwarded flag in exactly that spelling)."""
+    prefix = f"-{name}="
+    val: Optional[str] = None
+    for a in argv:
+        if a.startswith(prefix):
+            val = a[len(prefix):]
+    return val
+
+
+def _argv_brokers(argv: List[str]) -> Optional[List[int]]:
+    """The ``-broker-ids`` list of a canonical argv (None = auto) —
+    the ONE parse shared by the bucket probe (via ``_parse_request``)
+    and the session bucket memoization, so the two can never drift."""
+    from kafkabalancer_tpu_torch.utils.flags import go_atoi
+
+    raw = _argv_value(argv, "broker-ids")
+    if not raw or raw == "auto":
+        return None
+    return [go_atoi(b) for b in raw.split(",")]
+
+
+class PlanRequest:
+    """One queued ``plan`` request plus its completion latch."""
+
+    __slots__ = (
+        "argv", "stdin", "done", "response", "bucket", "bucketed",
+        "t_submit", "session_ctx", "tenant", "deadline", "started", "trace",
+    )
+
+    def __init__(
+        self,
+        argv: List[str],
+        stdin: Optional[str],
+        tenant: str = "",
+        deadline: Optional[float] = None,
+    ) -> None:
+        self.argv = argv
+        self.stdin = stdin
+        self.done = threading.Event()
+        self.response: Optional[Dict[str, Any]] = None
+        self.bucket: Optional[BucketKey] = None
+        self.bucketed = False  # probe memo (None is a valid "no bucket")
+        self.t_submit: Optional[float] = None  # queue-wait hist anchor
+        # resident-session context (serve/sessions.py
+        # PlanSessionContext) for the protocol-v2 session ops
+        self.session_ctx: Optional[Any] = None
+        # telemetry attribution label (the v2 session identity, or the
+        # plan header's "tenant"); "" lands in the scrape's "other"
+        # rollup — never a correctness input, only an attribution key
+        self.tenant = tenant
+        # absolute monotonic deadline from the client's ``deadline_ms``
+        # budget; QUEUED requests past it are shed (serve/admission.py),
+        # in-flight ones always run to completion
+        self.deadline = deadline
+        # _handle_plan entered (the ``requests`` counter includes it):
+        # the health monitor's ``abandoned`` accounting counts only
+        # requests that never began handling, so the conservation
+        # identity admitted == requests + abandoned cannot double-count
+        # a wedged-mid-handling request
+        self.started = False
+        # the client's trace context from the v2 header ("trace" key:
+        # id / parent / pre-send client phases / edge_pre_ms / rtt_ns,
+        # serve/protocol.py § End-to-end tracing); None on v1 frames
+        # and trace-less clients. Pure telemetry — never a correctness
+        # input, like `tenant`.
+        self.trace: Optional[Dict[str, Any]] = None
+
+
+class Coalescer:
+    """Serialize plan handling, draining same-bucket queue runs together.
+
+    ``handle(req, coalesced)`` runs every request (in arrival order
+    within a group); ``bucket_of(req)`` is the host-side shape probe,
+    called lazily and only when more than one request is waiting — the
+    uncontended case never pays it.
+    """
+
+    def __init__(
+        self,
+        handle: Callable[[PlanRequest, bool], None],
+        bucket_of: Callable[[PlanRequest], Optional[BucketKey]],
+    ) -> None:
+        self._handle = handle
+        self._bucket_of = bucket_of
+        self._dq: Deque[PlanRequest] = deque()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._active = 0  # requests popped but not yet completed
+        # the popped-but-unfinished group, for health_tick: a dispatch
+        # thread dying mid-group must not leave its waiters blocked
+        self._current: List[PlanRequest] = []
+        self.quarantines = 0
+        self.recoveries = 0
+        self.abandoned = 0
+        self._thread = threading.Thread(
+            target=self._loop, name="serve-dispatch", daemon=True
+        )
+        self._thread.start()
+
+    def busy(self) -> bool:
+        """Queued or in-flight work — the daemon's idle-timeout check
+        must not count a long-running plan as idleness."""
+        with self._cv:
+            return bool(self._dq) or self._active > 0
+
+    def health_stats(self) -> Dict[str, Any]:
+        """The single-lane half of the scrape's ``lane_health`` block
+        (the Coalescer has no per-lane watchdog; its one failure mode
+        is dispatch-thread death, recovered by :meth:`health_tick`)."""
+        with self._cv:
+            return {
+                "watchdog_s": 0.0,
+                "quarantined": [],
+                "quarantines": self.quarantines,
+                "requeues": 0,
+                "recoveries": self.recoveries,
+                "abandoned": self.abandoned,
+            }
+
+    def health_tick(
+        self, log: Optional[LogFn] = None
+    ) -> None:
+        """Detect and recover a dead dispatch thread: queued requests
+        are answered with a structured error (their submitters would
+        otherwise block forever) and a fresh loop thread takes over."""
+        if self._thread.is_alive() or self._stop:
+            return
+        with self._cv:
+            if self._stop:
+                return
+            pending = list(self._current) + list(self._dq)
+            self._current = []
+            self._dq.clear()
+            self._active = 0
+            self.quarantines += 1
+        flushed = 0
+        for r in pending:
+            if not r.done.is_set():
+                r.response = {
+                    "v": PROTO_VERSION, "ok": False,
+                    "error": "dispatcher died; request abandoned",
+                }
+                r.done.set()
+                flushed += 1
+        with self._cv:
+            self.abandoned += flushed
+        t = threading.Thread(
+            target=self._loop, name="serve-dispatch", daemon=True
+        )
+        try:
+            t.start()
+        except Exception:
+            return  # no thread to spare; retried next tick
+        with self._cv:
+            self._thread = t
+            self.recoveries += 1
+        if log is not None:
+            log(
+                "serve: dispatch thread died — restarted "
+                f"({len(pending)} queued requests answered with errors)"
+            )
+        obs.metrics.event("serve_dispatcher_restarted", flushed=len(pending))
+
+    def _bucket(self, req: PlanRequest) -> Optional[BucketKey]:
+        from kafkabalancer_tpu_torch.serve.lanes import probe_bucket
+
+        return probe_bucket(req, self._bucket_of)
+
+    def submit(self, req: PlanRequest) -> Dict[str, Any]:
+        with self._cv:
+            if self._stop:
+                return {
+                    "v": PROTO_VERSION, "ok": False,
+                    "error": "daemon shutting down",
+                }
+            self._dq.append(req)
+            self._cv.notify_all()
+        req.done.wait()
+        return req.response or {
+            "v": PROTO_VERSION, "ok": False, "error": "request dropped",
+        }
+
+    def stop(self, timeout: float = 30.0) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout)
+
+    # thread-role: request
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._dq and not self._stop:
+                    self._cv.wait()
+                if not self._dq:
+                    return  # stopping, queue drained
+                first = self._dq.popleft()
+                self._active += 1
+                contended = bool(self._dq)
+                group = [first]
+                # alias, not copy: group extensions below stay visible
+                # to health_tick's flush
+                self._current = group
+            try:
+                if contended:
+                    # the bucket probes (input read + parse) run OUTSIDE
+                    # the lock: submitters must stay able to enqueue
+                    # while the window is being assembled. Safe because
+                    # this loop is the only consumer — a snapshotted
+                    # request cannot be removed by anyone else.
+                    b0 = self._bucket(first)
+                    if b0 is not None:
+                        with self._cv:
+                            pending = list(self._dq)
+                        same = [r for r in pending if self._bucket(r) == b0]
+                        if same:
+                            with self._cv:
+                                for r in same:
+                                    self._dq.remove(r)
+                                self._active += len(same)
+                            group.extend(same)
+                for idx, req in enumerate(group):
+                    try:
+                        self._handle(req, idx > 0)
+                    except Exception as exc:  # never wedge a waiter
+                        req.response = {
+                            "v": PROTO_VERSION, "ok": False,
+                            "error": f"{type(exc).__name__}: {exc}",
+                        }
+                    finally:
+                        with self._cv:
+                            self._active -= 1
+                        req.done.set()
+                with self._cv:
+                    self._current = []
+            except Exception:
+                # group-assembly failure: the popped requests must not
+                # wedge their waiters nor leak the active count
+                with self._cv:
+                    self._active -= sum(
+                        1 for r in group if not r.done.is_set()
+                    )
+                    self._current = []
+                for r in group:
+                    if not r.done.is_set():
+                        r.response = {
+                            "v": PROTO_VERSION, "ok": False,
+                            "error": "dispatch failed",
+                        }
+                        r.done.set()
+
+
+class Daemon:
+    """The ``-serve`` daemon; see the module docstring."""
+
+    def __init__(
+        self,
+        socket_path: str,
+        idle_timeout: float = 900.0,
+        log: Optional[LogFn] = None,
+        warm: bool = True,
+        devices: Optional[Sequence[Any]] = None,
+        lanes: int = 1,
+        slow_ms: float = 0.0,
+        flight_dir: str = "",
+        session_cap: int = 64,
+        session_idle_s: float = 3600.0,
+        tenant_cap: int = 32,
+        max_queue: int = 256,
+        tenant_inflight: int = 64,
+        watchdog_s: float = 120.0,
+        faults_spec: str = "",
+        speculate: bool = False,
+        batching: bool = False,
+    ) -> None:
+        self.socket_path = socket_path
+        self.idle_timeout = idle_timeout
+        # warm=False builds the dispatcher on the calling thread before
+        # the accept loop starts and skips the kernel build (the tests'
+        # CPU daemons)
+        self.warm = warm
+        # devices: the lanes' devices (None: every visible CUDA device,
+        # resolved on the warm thread — see _resolve_devices)
+        self._device_spec = None if devices is None else list(devices)
+        self._devices: List[Any] = []
+        # slow_ms: a served request slower than this (milliseconds)
+        # auto-dumps the flight recorder (0 disables); flight_dir
+        # overrides the dump directory (default: the system tempdir)
+        self.slow_ms = max(0.0, slow_ms)
+        self.flight_dir = flight_dir
+        self.flight = FlightRecorder()
+        # lanes: 1 = the single-lane Coalescer; 0/negative = one lane per
+        # device; N>1 = min(N, devices)
+        self.lanes = lanes
+        # speculative plan-ahead was asked for: not in this package yet
+        # (ROADMAP.md A7b) — logged once at start, answers unchanged
+        self.speculate = speculate
+        # cross-request batching was asked for (-serve-microbatch > 1 or
+        # -serve-admission-hold): this package runs every request solo
+        # (serve/lanes.py) — logged once at start, answers unchanged
+        self.batching = batching
+        self._log: LogFn = log or (
+            lambda msg: print(msg, file=sys.stderr, flush=True)
+        )
+        self._stop = threading.Event()
+        self._warm_done = threading.Event()
+        self._lock = threading.Lock()
+        self._requests = 0
+        self._coalesced = 0
+        self._inflight = 0
+        # daemon-lifetime outcome counters: the registry counters of the
+        # same names are wiped by the next request's begin_invocation in
+        # single-lane (per-invocation-epoch) mode, so the scrape reads
+        # THESE, never the registry
+        self._slow = 0
+        self._crashed = 0
+        self._started = time.monotonic()
+        self._last_activity = time.monotonic()
+        self._seq = 0
+        # seconds the warm thread spent building the dispatcher and
+        # loading the kernels (None until it finished)
+        self.warm_seconds: Optional[float] = None
+        from kafkabalancer_tpu_torch.serve.cache import TensorizeRowCache
+        from kafkabalancer_tpu_torch.serve.sessions import SessionStore
+
+        self.tensorize_cache = TensorizeRowCache()
+        # resident cluster sessions (protocol v2; serve/sessions.py):
+        # LRU-capped per-tenant parsed/settled state + primed row cache
+        self.sessions = SessionStore(cap=session_cap, idle_s=session_idle_s)
+        # per-tenant telemetry label bound: top-K tenants by recent
+        # activity keep individual hists/counters, the rest roll into
+        # "other" (obs/hist.py HistFamily)
+        self.tenant_cap = max(1, tenant_cap)
+        # daemon-observed client fallback/resync reasons, scraped as
+        # the stats doc's "fallbacks" block
+        self._fallbacks: Dict[str, int] = {}
+        self._coalescer: Optional[Any] = None
+        self._dispatcher_ready = threading.Event()
+        self._lanes: "List[Any]" = []
+        # request-thread -> lane map for the span-driven heartbeat:
+        # every span completing on a serve-req thread beats its lane,
+        # so a legitimately slow plan never reads as a wedged lane —
+        # only a call that produces NO observable progress past
+        # -serve-watchdog does
+        self._thread_lanes: Dict[str, Any] = {}
+        # overload protection (serve/admission.py): per-tenant fair
+        # queueing + caps in FRONT of whichever dispatcher gets built.
+        # The window starts sized for the single-lane case and is
+        # re-sized once lane resolution knows the device count
+        self.watchdog_s = max(0.0, watchdog_s)
+        self.faults_spec = faults_spec
+        self._admission = AdmissionController(
+            window=4,
+            max_queue=max_queue,
+            tenant_inflight=tenant_inflight,
+            parallel=1,
+        )
+
+    # -- warmup ----------------------------------------------------------
+    # thread-role: warm
+    def _warm_body(self) -> None:
+        """Background startup warm: dispatcher construction FIRST (device
+        resolution imports torch and creates the CUDA context; the
+        accept loop answers hello immediately while it runs), then the
+        build and load of both kernel libraries, so request 1 pays
+        neither. Never raises: a dispatcher failure falls back to the
+        single-lane Coalescer, and a kernel that fails to build or load
+        is logged — each request that needs it then fails on its own
+        (exit 3), nothing falls back to the plain version."""
+        t0 = time.perf_counter()
+        try:
+            self._coalescer = self._make_dispatcher()
+        except Exception as exc:
+            # a broken device must not cost availability: fall back to
+            # the single-lane dispatcher, with every lane-mode side
+            # effect undone
+            self._log(f"serve: dispatcher init failed ({exc!r}); 1 lane")
+            from kafkabalancer_tpu_torch.ops.tensorize import set_row_cache
+
+            obs.set_shared_registry(False)
+            self._lanes = []
+            set_row_cache(self.tensorize_cache)
+            self._coalescer = Coalescer(self._handle_plan, self._bucket_of)
+        finally:
+            self._dispatcher_ready.set()
+        try:
+            cuda = [
+                d for d in self._devices if getattr(d, "type", "") == "cuda"
+            ]
+            if cuda:
+                import torch
+
+                from kafkabalancer_tpu_torch.parallel import shard_kernel
+                from kafkabalancer_tpu_torch.solvers import pallas_session
+
+                for dev in dict.fromkeys(cuda):
+                    # the CUDA context of every lane's card, created now
+                    torch.zeros(1, device=dev)
+                for name, load in (
+                    ("shard_score", shard_kernel._load),
+                    ("pallas_session", pallas_session._load),
+                ):
+                    try:
+                        load()
+                    except Exception as exc:
+                        self._log(
+                            f"serve: kernel {name} failed to build or "
+                            f"load; requests that need it exit 3: {exc}"
+                        )
+            self.warm_seconds = time.perf_counter() - t0
+            self._log(
+                f"serve: warm in {self.warm_seconds:.3f}s "
+                f"({len(cuda)} CUDA lane device"
+                f"{'s' if len(cuda) != 1 else ''})"
+            )
+        except Exception as exc:
+            self._log(f"serve: warmup failed: {exc!r}")
+        finally:
+            # the idle clock starts HERE: a long kernel build must not
+            # count as idleness
+            self._touch()
+            self._warm_done.set()
+
+    # -- live telemetry ---------------------------------------------------
+    def _observe_span(self, sp: Span) -> None:
+        """The tracer's always-on observer (obs/trace.py): every
+        completed span — tracing flags or not — lands in the flight
+        recorder ring, and phase-chain spans feed the streaming
+        per-phase histograms. Cheap by construction: one ring append +
+        at most one histogram observation, no locks shared with the
+        dispatcher."""
+        t1 = sp.t1_ns if sp.t1_ns is not None else sp.t0_ns
+        self.flight.note_span(
+            sp.name, sp.t0_ns, t1, sp.thread_name, sp.tid, sp.attrs
+        )
+        lane = self._thread_lanes.get(sp.thread_name)
+        if lane is not None:
+            # watchdog heartbeat: observable request progress on this
+            # lane (one dict get + a float store per span)
+            lane.last_beat = time.monotonic()
+        phase = PHASE_OF_SPAN.get(sp.name)
+        if phase is not None:
+            obs.metrics.hist_observe(
+                f"serve.phase.{phase}", (t1 - sp.t0_ns) / 1e9
+            )
+
+    # -- request handling ------------------------------------------------
+    def _parse_request(
+        self, req: PlanRequest
+    ) -> "Optional[Tuple[Any, Optional[List[int]]]]":
+        """Parse one queued request's input the way the real run will
+        (reader + -input-json + -topics + -broker-ids semantics) — the
+        ONE request-argv parse shared by the bucket probe and the lane
+        stage hook, so the two cannot drift. Returns ``(partition_list,
+        brokers)`` or None (zookeeper input / nothing to read — the
+        real run surfaces any error)."""
+        if _argv_value(req.argv, "from-zk"):
+            return None
+        input_path = _argv_value(req.argv, "input")
+        if input_path:
+            with open(input_path, "r") as fh:
+                text = fh.read()
+        elif req.stdin is not None:
+            text = req.stdin
+        else:
+            return None
+        from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+
+        as_json = _argv_value(req.argv, "input-json") == "true"
+        topics_raw = _argv_value(req.argv, "topics") or ""
+        topics = [t for t in topics_raw.split(",") if len(t) >= 1]
+        pl = get_partition_list_from_reader(io.StringIO(text), as_json, topics)
+        return pl, _argv_brokers(req.argv)
+
+    def _count_resync_full(self, tenant: str) -> None:
+        """One full re-sync landed for ``tenant``: the store's global
+        monotone counter plus the tenant family (session thrash is a
+        per-tenant signal)."""
+        self.sessions.count_resync_full()
+        obs.metrics.tenant_count(
+            "serve.resyncs_full", tenant or OTHER_LABEL
+        )
+
+    def _count_fallback(self, reason: str, tenant: str = "") -> None:
+        with self._lock:
+            self._fallbacks[reason] = self._fallbacks.get(reason, 0) + 1
+        # tenant attribution rides the bounded label family: which
+        # tenant is eating the fallback budget (untenanted reasons —
+        # bad frames, version skew — roll up under "other")
+        obs.metrics.tenant_count(
+            "serve.fallbacks", tenant or OTHER_LABEL
+        )
+
+    def _bucket_of(self, req: PlanRequest) -> Optional[BucketKey]:
+        """Host-side shape-bucket probe of one queued request
+        (``ops.runtime.prefetch_hints``), so two requests coalesce
+        exactly when their encodings share one padded shape. None
+        (= never coalesced) for zookeeper inputs and
+        anything that fails to parse (the real run surfaces the error).
+        Resident-session requests carry no input text; their bucket is
+        the session's memoized one (computed once, after its first
+        request)."""
+        ctx = req.session_ctx
+        if ctx is not None:
+            bucket: Optional[BucketKey] = ctx.session.bucket
+            if bucket is not None or req.stdin is None:
+                return bucket
+        parsed = self._parse_request(req)
+        if parsed is None:
+            return None
+        pl, brokers = parsed
+        from kafkabalancer_tpu_torch.ops.runtime import prefetch_hints
+
+        hints = prefetch_hints(pl, brokers)
+        return (
+            int(hints["P"]), int(hints["R"]), int(hints["B"]),
+            bool(hints["all_allowed"]),
+        )
+
+    def _handle_plan(
+        self,
+        req: PlanRequest,
+        coalesced: bool,
+        lane: Optional[Any] = None,
+    ) -> None:
+        from kafkabalancer_tpu_torch import cli
+
+        # handling BEGINS here (before any injected wedge): a request
+        # the watchdog later abandons mid-handling still lands in the
+        # requests counter when it resumes, never in `abandoned`
+        req.started = True
+        # chaos seam (serve/faults.py; inert unless -serve-faults armed):
+        # a scheduled dispatch_delay sleeps HERE — observable by the
+        # lane watchdog exactly like a wedged host call
+        faults.fire("dispatch_delay")
+        t_start = time.perf_counter()
+        tenant_label = req.tenant or OTHER_LABEL
+        if req.t_submit is not None:
+            # queue wait: accept-thread submit to dispatcher pickup —
+            # global hist AND the tenant family (who waits behind whom)
+            queue_s = t_start - req.t_submit
+            obs.metrics.hist_observe("serve.phase.queue", queue_s)
+            obs.metrics.tenant_hist_observe(
+                "serve.phase.queue", tenant_label, queue_s
+            )
+        with self._lock:
+            self._requests += 1
+            if coalesced:
+                self._coalesced += 1
+            n = self._requests
+            n_coal = self._coalesced
+            self._seq += 1
+            seq = self._seq
+        attrs: Dict[str, Any] = {
+            "served": True,
+            "serve.requests": float(n),
+            "serve.coalesced": float(n_coal),
+        }
+        trace = req.trace if isinstance(req.trace, dict) else None
+        if trace is not None:
+            # the client's trace context rides into the request's
+            # gauges: the trace id plus the client's pre-send edge
+            # phases as client.phase.* (obs/edge.py glossary); the
+            # tenant serve.edge_ms family attributes client+network
+            # overhead (pre-send phases + measured RTT) per label
+            tid_hex = str(trace.get("id") or "")
+            if tid_hex:
+                attrs["trace_id"] = tid_hex
+            cphases = trace.get("phases")
+            if isinstance(cphases, dict):
+                for key, val in sorted(cphases.items()):
+                    if isinstance(val, (int, float)) and not isinstance(
+                        val, bool
+                    ):
+                        attrs[f"client.phase.{key}"] = round(
+                            float(val), 6
+                        )
+            edge_pre = trace.get("edge_pre_ms")
+            if isinstance(edge_pre, (int, float)) and not isinstance(
+                edge_pre, bool
+            ):
+                total_ms = float(edge_pre)
+                rtt_ns = trace.get("rtt_ns")
+                if isinstance(rtt_ns, int) and rtt_ns > 0:
+                    total_ms += rtt_ns / 1e6
+                attrs["client.edge_pre_ms"] = round(total_ms, 3)
+                obs.metrics.tenant_hist_observe(
+                    "serve.edge_ms", tenant_label, total_ms
+                )
+        ctx = req.session_ctx
+        if req.tenant:
+            attrs["serve.tenant"] = req.tenant
+        if ctx is not None:
+            ss = self.sessions.stats()
+            attrs["serve.sessions"] = float(ss["count"])
+            attrs["serve.session_bytes"] = float(ss["bytes"])
+            attrs["serve.delta_hits"] = float(ss["delta_hits"])
+            if ctx.kind in ("delta", "rebuild"):
+                attrs["serve.delta_hit"] = True
+        sched = self._coalescer
+        if lane is not None and hasattr(sched, "stats"):
+            s = sched.stats()
+            attrs.update({
+                "serve.lanes": s["lanes"],
+                "serve.lane": float(lane.index),
+                "serve.lane_busy_s": s["lane_busy_s"],
+                "serve.steals": s["steals"],
+                "serve.cache_hits": s["cache_hits"],
+            })
+            mem0 = device_memory_stats(lane.device)
+            if mem0 is not None:
+                attrs["serve.device_bytes_in_use"] = float(
+                    mem0["bytes_in_use"]
+                )
+        else:
+            attrs["serve.lanes"] = 1.0
+            attrs["serve.cache_hits"] = float(
+                self.tensorize_cache.stats()["hits"]
+                + self.sessions.cache_stats()["hits"]
+            )
+
+        def refresh() -> Dict[str, Any]:
+            # re-snapshot the lane's device memory when the request ends
+            mem2 = device_memory_stats(lane.device)
+            if mem2 is None:
+                return {}
+            return {"serve.device_bytes_in_use": float(mem2["bytes_in_use"])}
+
+        # the request's device: its lane's; the single-lane Coalescer
+        # plans on the daemon's first device (None: the CLI's default,
+        # CUDA — exit 3 without a card, exactly as in process). A
+        # -fused-shard request (mesh-exclusive on a lane) spreads over
+        # every device of the daemon.
+        device = lane.device if lane is not None else self._device0()
+        shard_devices = list(self._devices) or None
+        i = io.StringIO(req.stdin or "")
+        out, err = io.StringIO(), io.StringIO()
+        rc_box: List[int] = []
+
+        def body() -> None:  # thread-role: request
+            # chaos seam: a scheduled transfer_fail raises before the
+            # device work — the request crashes server-side and is
+            # answered with a structured error, never a wrong plan
+            faults.fire("transfer_fail")
+            with contextlib.ExitStack() as st:
+                if lane is not None:
+                    st.enter_context(lane.context())
+                if ctx is not None:
+                    # session activation AFTER the lane context: the
+                    # session's trusted-delta row cache overrides the
+                    # lane's, and the mutation tap mirrors every
+                    # applied move into the session's raw shadow
+                    st.enter_context(ctx.activate())
+                rc_box.append(
+                    cli.run(
+                        i, out, err, ["kafkabalancer"] + req.argv,
+                        device=device,
+                        shard_devices=shard_devices,
+                        attrs=attrs,
+                        refresh_attrs=refresh if lane is not None else None,
+                        session=ctx,
+                    )
+                )
+
+        # a named thread per request: the request's telemetry spans get
+        # their own track ("serve-req-N"), and the flight recorder
+        # attributes phase spans to it by name
+        thread_name = f"serve-req-{seq}"
+        t = threading.Thread(target=body, name=thread_name)
+        if lane is not None:
+            self._thread_lanes[thread_name] = lane
+        try:
+            t.start()
+            t.join()
+            rc: Optional[int] = rc_box[0] if rc_box else None
+            if rc is None:
+                # cli.run raised: a daemon-side crash must NOT
+                # masquerade as one of the CLI's documented exit codes —
+                # an ok:false response makes the client fall back and
+                # plan in-process
+                self._log(
+                    f"serve: request {seq} crashed (see traceback above)"
+                )
+                req.response = {
+                    "v": PROTO_VERSION,
+                    "ok": False,
+                    "error": "internal error: planner thread died",
+                }
+            else:
+                req.response = {
+                    "v": PROTO_VERSION,
+                    "ok": True,
+                    "rc": rc,
+                    "stdout": out.getvalue(),
+                    "stderr": err.getvalue(),
+                }
+            self._touch()
+        finally:
+            # the flight-recorder request summary + the reconciliation
+            # histogram: EVERY _handle_plan call (crash paths included)
+            # lands exactly one serve.request_s observation, so a
+            # post-traffic scrape's hist count equals serve.requests
+            wall = time.perf_counter() - t_start
+            obs.metrics.hist_observe("serve.request_s", wall)
+            # feed the admission layer's retry-after estimate
+            self._admission.note_service(wall)
+            # the tenant dimension: same invariant per label
+            obs.metrics.tenant_hist_observe(
+                "serve.request_s", tenant_label, wall
+            )
+            obs.metrics.tenant_count("serve.requests", tenant_label)
+            phases = self.flight.pop_request_phases(thread_name)
+            self._thread_lanes.pop(thread_name, None)
+            rc_val = rc_box[0] if rc_box else None
+            if ctx is not None:
+                # revert the unemitted complete-partition probe
+                # applies (post-run: the output already aliased them),
+                # fold the tapped mutations into the session's
+                # predicted digest (or poison it on failure), refresh
+                # the byte estimate, and memoize the shape bucket once
+                # — the connection thread still holds the session lock
+                ctx.apply_unemitted_reverts()
+                ctx.session.finish(rc_val)
+                if ctx.session.bucket is None and ctx.session.raw:
+                    try:
+                        from kafkabalancer_tpu_torch.models.partition import (
+                            PartitionList,
+                        )
+                        from kafkabalancer_tpu_torch.ops.runtime import (
+                            prefetch_hints,
+                        )
+
+                        # hints run on the RAW shadow (pre-settle
+                        # semantics, moves applied): the bucket must
+                        # equal what the probe computes on the next
+                        # request's freshly parsed input, or session
+                        # requests would never coalesce with stateless
+                        # same-cluster peers
+                        hints = prefetch_hints(
+                            PartitionList(
+                                version=ctx.session.version,
+                                partitions=ctx.session.raw,
+                            ),
+                            _argv_brokers(req.argv),
+                        )
+                        ctx.session.bucket = (
+                            int(hints["P"]), int(hints["R"]),
+                            int(hints["B"]), bool(hints["all_allowed"]),
+                        )
+                    except Exception:
+                        pass  # bucket stays unmemoized; probe-only loss
+            self.flight.record_request({
+                "req": seq,
+                "t": round(time.time(), 3),
+                "lane": lane.index if lane is not None else 0,
+                "tenant": req.tenant or None,
+                "bucket": list(req.bucket) if req.bucket else None,
+                "rc": rc_val,
+                "coalesced": coalesced,
+                "wall_s": round(wall, 6),
+                "phases": {k: round(v, 6) for k, v in sorted(
+                    phases.items()
+                )},
+                "trace": (
+                    str(trace["id"])
+                    if trace is not None and trace.get("id")
+                    else None
+                ),
+            })
+            if (
+                trace is not None
+                and isinstance(req.response, dict)
+                and req.response.get("ok")
+            ):
+                # the reply footer: this request's bounded daemon span
+                # subtree rides back to the client (raw perf_counter_ns
+                # stamps, mapped through the client's clock-offset
+                # estimate)
+                req.response["trace"] = {
+                    "id": trace.get("id"),
+                    "wall_s": round(wall, 6),
+                    "spans": self.flight.spans_for_thread(
+                        thread_name, cap=FOOTER_SPAN_CAP
+                    ),
+                }
+            if rc_val is None:
+                with self._lock:
+                    self._crashed += 1
+                obs.metrics.count("serve.crashed_requests")
+                obs.metrics.tenant_count(
+                    "serve.crashed_requests", tenant_label
+                )
+                self.flight.autodump(
+                    f"crash-req-{seq}",
+                    directory=self.flight_dir or None,
+                    log=self._log,
+                )
+            elif self.slow_ms > 0 and wall * 1000.0 >= self.slow_ms:
+                with self._lock:
+                    self._slow += 1
+                obs.metrics.count("serve.slow_requests")
+                self.flight.autodump(
+                    f"slow-req-{seq}",
+                    directory=self.flight_dir or None,
+                    log=self._log,
+                )
+
+    # -- lanes -----------------------------------------------------------
+    def _resolve_devices(self) -> List[Any]:
+        """The daemon's devices: the ones it was given (tests pass CPU
+        devices; a device may be named twice, as in ``parallel/mesh.py``),
+        else every visible CUDA device — none without a card, and then
+        device work fails exactly as in process (exit 3): the daemon
+        never plans on the CPU unless it was given CPU devices."""
+        import torch
+
+        if self._device_spec is not None:
+            return [torch.device(d) for d in self._device_spec]
+        if not torch.cuda.is_available():
+            return []
+        return [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())
+        ]
+
+    def _device0(self) -> Any:
+        return self._devices[0] if self._devices else None
+
+    def _resolve_lanes(self) -> int:
+        """How many lanes to run: 1 stays the Coalescer; auto (<=0) and
+        N>1 resolve against the device count. One device always
+        degrades to 1."""
+        if self.lanes == 1:
+            return 1
+        ndev = len(self._devices)
+        n = ndev if self.lanes <= 0 else min(self.lanes, ndev)
+        return max(1, n)
+
+    def _make_dispatcher(self) -> Any:
+        """The request dispatcher: the single-lane Coalescer when one
+        lane suffices, else the multi-lane scheduler with per-device
+        lanes, affinity routing and stealing."""
+        self._devices = self._resolve_devices()
+        n_lanes = self._resolve_lanes()
+        if n_lanes <= 1:
+            from kafkabalancer_tpu_torch.ops.tensorize import set_row_cache
+
+            set_row_cache(self.tensorize_cache)
+            return Coalescer(self._handle_plan, self._bucket_of)
+        from kafkabalancer_tpu_torch.serve.cache import TensorizeRowCache
+        from kafkabalancer_tpu_torch.serve.lanes import Lane, LaneScheduler
+
+        self._lanes = []
+        for i in range(n_lanes):
+            lane = Lane(i, self._devices[i] if i < len(self._devices) else None)
+            lane.row_cache = TensorizeRowCache()
+            self._lanes.append(lane)
+        scheduler = LaneScheduler(
+            self._handle_plan,
+            self._bucket_of,
+            self._lanes,
+            watchdog_s=self.watchdog_s,
+            exclusive=self._mesh_exclusive_request,
+        )
+        # the admission window scales with the real lane count
+        self._admission.set_window(max(4, 2 * len(self._lanes)))
+        self._admission.set_parallel(len(self._lanes))
+        # concurrent request bodies share the daemon-lifetime registry:
+        # a per-request reset would wipe an in-flight peer's attribution.
+        # Set only AFTER the scheduler constructed — a construction
+        # failure falls back to the Coalescer, which must keep the
+        # per-invocation metrics epochs.
+        obs.set_shared_registry(True)
+        self._log(
+            f"serve: {n_lanes} device lanes "
+            f"({', '.join(str(ln.device) for ln in self._lanes)})"
+        )
+        return scheduler
+
+    @staticmethod
+    def _mesh_exclusive_request(req: PlanRequest) -> bool:
+        """MESH-EXCLUSIVE prediction: a ``-fused-shard`` plan spreads
+        over EVERY lane's device, so it must never race lane-pinned
+        work — the scheduler drains all lanes before running it and
+        holds new dispatches until it returns (serve/lanes.py
+        ``LaneScheduler._run_exclusive``)."""
+        return _argv_value(req.argv, "fused-shard") == "true"
+
+    def _memory_snapshot(self) -> List[Dict[str, Any]]:
+        """Per-lane device-memory attribution: the caching allocator's
+        bytes and the card's total (``serve.devmem`` — null until CUDA
+        is initialized, and on CPU lanes). One entry per lane; the
+        single-lane Coalescer reports lane 0."""
+        lanes = [(ln.index, ln.device) for ln in self._lanes] or [
+            (0, self._device0())
+        ]
+        out: List[Dict[str, Any]] = []
+        for index, dev in lanes:
+            hbm = (device_memory_stats(dev) if dev is not None else None) or {}
+            out.append({
+                "lane": index,
+                "hbm_bytes_in_use": hbm.get("bytes_in_use"),
+                "hbm_bytes_limit": hbm.get("bytes_limit"),
+            })
+        return out
+
+    def _core_snapshot(self) -> Dict[str, Any]:
+        """The ONE daemon-state snapshot both ``hello`` and ``stats``
+        render from — the two scrape paths cannot drift."""
+        with self._lock:
+            n, n_coal, inflight = (
+                self._requests, self._coalesced, self._inflight,
+            )
+            slow, crashed = self._slow, self._crashed
+            fallbacks = dict(self._fallbacks)
+        fault_plan = faults.active()
+        # tensorize-cache attribution: the process-wide cache plus every
+        # resident session's trusted-delta cache (retired sessions
+        # folded in, so the counters stay monotone)
+        sess_cache = self.sessions.cache_stats()
+        base_cache = self.tensorize_cache.stats()
+        cache = {
+            k: base_cache.get(k, 0) + sess_cache.get(k, 0)
+            for k in ("hits", "misses", "rows_reused")
+        }
+        out: Dict[str, Any] = {
+            "pid": os.getpid(),
+            "version": __version__,
+            "uptime_s": round(time.monotonic() - self._started, 3),
+            # still inside the startup warm window: a client progress
+            # probe must not read "no in-flight work" as a wedge while
+            # the dispatcher is still being built
+            "warming": not self._warm_done.is_set(),
+            "requests": n,
+            "coalesced": n_coal,
+            "requests_inflight": inflight,
+            "slow_requests": slow,
+            "crashed_requests": crashed,
+            "cache": cache,
+            "memory": self._memory_snapshot(),
+            # resident cluster sessions (serve/sessions.py): count,
+            # resident bytes, delta hits/resyncs — serve-stats/3
+            "sessions": self.sessions.stats(),
+            # the warm session tier, speculation and -watch are not in
+            # this package yet (ROADMAP.md A7b): their blocks keep the
+            # schema's key sets, switched off
+            "paging": dict(_PAGING_OFF),
+            "speculation": dict(_SPECULATION_OFF),
+            "watch": dict(_WATCH_OFF),
+            # daemon-observed fallback/resync reasons, by name
+            "fallbacks": fallbacks,
+            # overload protection (serve-stats/5): fair-queue occupancy,
+            # caps, shed counts by reason, the live retry_after estimate
+            "admission": self._admission.stats(),
+            # the chaos seam: armed spec (null when inert) + per-site
+            # fired counts — a chaos run's scrape names what it injected
+            "faults": {
+                "armed": fault_plan.spec if fault_plan is not None else None,
+                "fired": (
+                    fault_plan.fired_counts()
+                    if fault_plan is not None else {}
+                ),
+            },
+        }
+        sched = self._coalescer
+        if sched is not None and hasattr(sched, "health_stats"):
+            out["lane_health"] = sched.health_stats()
+        else:
+            out["lane_health"] = {
+                "watchdog_s": self.watchdog_s, "quarantined": [],
+                "quarantines": 0, "requeues": 0, "recoveries": 0,
+                "abandoned": 0,
+            }
+        if self._lanes and hasattr(sched, "stats"):
+            s = sched.stats()
+            out["lanes"] = int(s["lanes"])
+            out["steals"] = int(s["steals"])
+            # mesh-exclusive runs (-fused-shard: drained the fleet and
+            # owned every device for the dispatch)
+            out["mesh_exclusive"] = int(s.get("mesh_exclusive", 0))
+            out["lane_busy_s"] = [
+                round(ln.busy_s, 3) for ln in self._lanes
+            ]
+            out["lane_requests"] = [ln.requests for ln in self._lanes]
+            out["cache"] = {
+                "hits": sess_cache["hits"] + sum(
+                    ln.cache_stats()["hits"] for ln in self._lanes
+                ),
+                "misses": sess_cache["misses"] + sum(
+                    ln.cache_stats()["misses"] for ln in self._lanes
+                ),
+                "rows_reused": sess_cache["rows_reused"] + sum(
+                    ln.cache_stats()["rows_reused"] for ln in self._lanes
+                ),
+            }
+        return out
+
+    def _hello(self) -> Dict[str, Any]:
+        return {
+            "v": PROTO_VERSION, "ok": True, "op": "hello",
+            # v2 negotiation: always advertised; only clients that
+            # ALSO advertised it switch the connection's framing
+            "max_v": PROTO_V2,
+            **self._core_snapshot(),
+        }
+
+    def _tenants_block(self) -> Dict[str, Any]:
+        """The serve-stats/5 per-tenant attribution block: one entry
+        per live top-K tenant (keyed off the ``serve.request_s`` family
+        — request activity is the authority on who is "top") carrying
+        request counts, latency hists, queue time, the session
+        delta/resync ladder, fallback counts and resident session
+        bytes; demoted tenants aggregate under ``other``. Reads only
+        the registry's label families and the session store — locks
+        the plan dispatcher never holds across a dispatch."""
+        snap = obs.metrics.tenant_snapshot()
+        hfams, cfams = snap["hists"], snap["counters"]
+        req_fam = hfams.get("serve.request_s") or {
+            "cap": self.tenant_cap, "demoted": 0, "other": None,
+            "labels": {},
+        }
+        queue_fam = hfams.get("serve.phase.queue") or {
+            "other": None, "labels": {},
+        }
+        edge_fam = hfams.get("serve.edge_ms") or {
+            "other": None, "labels": {},
+        }
+
+        def cval(name: str, label: str) -> int:
+            fam = cfams.get(name)
+            if fam is None:
+                return 0
+            if label == OTHER_LABEL:
+                # the families LRU independently: a label demoted from
+                # the request_s family may still hold live counters in
+                # a sparser family (delta_hits is only touched on
+                # hits). The rollup absorbs every count NOT attributed
+                # to a live top-K label, so the table's totals always
+                # reconcile with the global blocks.
+                return int(
+                    fam.get("other", 0)
+                    + sum(
+                        v for lbl, v in fam["labels"].items()
+                        if lbl not in top_labels
+                    )
+                )
+            return int(fam["labels"].get(label, 0))
+
+        by_tenant = self.sessions.stats_by_tenant()
+        # the rollup's session footprint: everything resident that is
+        # NOT attributed to a live top-K label (demoted tenants keep
+        # their sessions; the table must still reconcile with the
+        # global "sessions" block)
+        top_labels = set(req_fam["labels"])
+        rolled = {"sessions": 0, "bytes": 0}
+        for t_label, s in by_tenant.items():
+            if t_label not in top_labels:
+                rolled["sessions"] += s["sessions"]
+                rolled["bytes"] += s["bytes"]
+
+        def entry(label: str, hist: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+            sess = rolled if label == OTHER_LABEL else by_tenant.get(
+                label, {}
+            )
+            queue = (
+                queue_fam.get("other") if label == OTHER_LABEL
+                else queue_fam["labels"].get(label)
+            )
+            edge = (
+                edge_fam.get("other") if label == OTHER_LABEL
+                else edge_fam["labels"].get(label)
+            )
+            return {
+                "requests": cval("serve.requests", label),
+                "crashed": cval("serve.crashed_requests", label),
+                "request_s": hist,
+                "queue_s": queue,
+                # serve-stats/8: client+network edge overhead per label
+                # (pre-send client phases + measured RTT, milliseconds)
+                # — None until a tracing client reports (obs/edge.py)
+                "edge_ms": edge,
+                "delta_hits": cval("serve.delta_hits", label),
+                # speculation and the warm tier are not in this package
+                # yet (ROADMAP.md A7b): their columns stay 0
+                "spec_hits": 0,
+                "resyncs_rows": cval("serve.resyncs_rows", label),
+                "resyncs_full": cval("serve.resyncs_full", label),
+                "fallbacks": cval("serve.fallbacks", label),
+                "sheds": cval("serve.sheds", label),
+                "restores": 0,
+                "sessions": int(sess.get("sessions", 0)),
+                "session_bytes": int(sess.get("bytes", 0)),
+                "warm_sessions": 0,
+                "warm_bytes": 0,
+            }
+
+        other = entry(OTHER_LABEL, req_fam.get("other"))
+        has_other = req_fam.get("other") is not None or any(
+            other[k] for k in (
+                "requests", "crashed", "delta_hits", "resyncs_rows",
+                "resyncs_full", "fallbacks", "sheds",
+            )
+        )
+        return {
+            "cap": int(req_fam.get("cap", self.tenant_cap)),
+            "demoted": int(req_fam.get("demoted", 0)),
+            "top": {
+                label: entry(label, hist)
+                for label, hist in req_fam["labels"].items()
+            },
+            "other": other if has_other else None,
+        }
+
+    def _stats_doc(self) -> Dict[str, Any]:
+        """The ``stats`` scrape document (``STATS_SCHEMA``): the shared
+        core snapshot plus every streaming histogram, the per-tenant
+        attribution block and the flight recorder's occupancy. Built
+        entirely from locks the plan dispatcher never holds across a
+        dispatch, so a scrape cannot pause planning."""
+        doc: Dict[str, Any] = {
+            "v": PROTO_VERSION, "ok": True, "op": "stats",
+            "schema": STATS_SCHEMA,
+            "ts_epoch": round(time.time(), 3),
+            **self._core_snapshot(),
+        }
+        doc["hists"] = obs.metrics.hist_snapshot()
+        doc["tenants"] = self._tenants_block()
+        doc["flight"] = self.flight.stats()
+        return doc
+
+    def _touch(self) -> None:
+        self._last_activity = time.monotonic()
+
+    def _dispatch_plan(self, req: PlanRequest) -> Optional[Dict[str, Any]]:
+        """Route one plan request through admission control and the
+        dispatcher (waiting out the startup race), with the in-flight
+        gauge held; None when the dispatcher never became ready. A shed
+        returns the structured overload frame WITHOUT touching the
+        dispatcher — shed latency lands in ``serve.shed_s``, never in
+        the served-request histograms."""
+        self._dispatcher_ready.wait(DISPATCHER_WAIT_S)
+        dispatcher = self._coalescer
+        if dispatcher is None:
+            return None
+        # t_submit anchors the queue-wait histogram at ARRIVAL: the
+        # fair-queue wait is part of what a tenant waits behind
+        req.t_submit = time.perf_counter()
+        shed = self._admission.acquire(req)
+        if shed is not None:
+            return shed
+        try:
+            return dispatcher.submit(req)
+        finally:
+            self._admission.release(req)
+
+    @contextlib.contextmanager
+    def _inflight_op(self) -> "Iterator[None]":
+        """Hold the ``requests_inflight`` gauge across one plan-family
+        connection op — from frame decode through response build, the
+        session-op pre-dispatch work (register parse/digest, row
+        patching) INCLUDED: a client's progress probe reads
+        ``requests_inflight > 0`` as "my request is being worked on",
+        and that must be true for every phase the daemon can spend
+        real time in, or a slow register reads as a lost request."""
+        with self._lock:
+            self._inflight += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._inflight -= 1
+
+    # -- protocol v2: session ops ----------------------------------------
+    def _v2_plan_resp(
+        self, resp: Optional[Dict[str, Any]]
+    ) -> Tuple[Dict[str, Any], bytes]:
+        """A dispatcher response as a v2 frame: stdout rides the blob
+        (no JSON escaping), the rest in the header."""
+        if resp is None:
+            return {
+                "v": PROTO_V2, "ok": False, "op": "error",
+                "error": "daemon dispatcher not ready",
+            }, b""
+        if not resp.get("ok"):
+            if resp.get("op") == "overload":
+                # the structured shed frame survives v2 framing intact:
+                # the client's backoff ladder reads retry_after_ms
+                return {
+                    "v": PROTO_V2, "ok": False, "op": "overload",
+                    "reason": str(resp.get("reason", "overload")),
+                    "retry_after_ms": int(resp.get("retry_after_ms", 0)),
+                    "error": str(resp.get("error", "request shed")),
+                }, b""
+            return {
+                "v": PROTO_V2, "ok": False, "op": "error",
+                "error": str(resp.get("error", "request failed")),
+            }, b""
+        hdr: Dict[str, Any] = {
+            "v": PROTO_V2, "ok": True, "rc": int(resp.get("rc", -1)),
+            "stderr": str(resp.get("stderr", "")),
+        }
+        if isinstance(resp.get("trace"), dict):
+            # the reply footer (daemon span subtree + wall) rides the
+            # v2 header back to tracing clients — ONLY when the request
+            # carried a trace context, so trace-less clients see the
+            # exact pre-tracing header shape
+            hdr["trace"] = resp["trace"]
+        return hdr, str(resp.get("stdout", "")).encode("utf-8")
+
+    def _session_op(
+        self, op: str, hdr: Dict[str, Any], blob: bytes, argv: List[str]
+    ) -> Tuple[Dict[str, Any], bytes]:
+        """One v2 plan-family op (``plan``/``register``/``plan-delta``/
+        ``plan-rows``) — the resident-session ladder of
+        serve/sessions.py. Returns the response (header, blob)."""
+        from kafkabalancer_tpu_torch.serve import state as sstate
+        from kafkabalancer_tpu_torch.serve.sessions import (
+            ClusterSession,
+            PlanSessionContext,
+            flags_signature,
+        )
+
+        def _resync_full() -> Tuple[Dict[str, Any], bytes]:
+            return {
+                "v": PROTO_V2, "ok": True, "op": op, "resync": "full",
+            }, b""
+
+        tenant = str(hdr.get("tenant", ""))
+        deadline = _deadline_of(hdr)
+        # the client's trace context (obs/edge.py), v2-only; telemetry
+        # only: threaded onto every PlanRequest the op creates and NEVER
+        # read by planning
+        trace_hdr = hdr.get("trace")
+        trace = trace_hdr if isinstance(trace_hdr, dict) else None
+        if op == "plan":
+            stdin = (
+                blob.decode("utf-8", errors="replace")
+                if hdr.get("has_stdin") else None
+            )
+            req = PlanRequest(argv, stdin, tenant, deadline=deadline)
+            req.trace = trace
+            return self._v2_plan_resp(self._dispatch_plan(req))
+
+        key = (tenant, flags_signature(argv))
+        if op == "register":
+            text = blob.decode("utf-8", errors="replace")
+            sess = ClusterSession(tenant, key[1])
+            ctx = PlanSessionContext("register", sess)
+            # the fresh session is private until put(); hold its lock
+            # anyway so the store can never hand it out half-built
+            with sess.lock:
+                sess.in_use = True
+                try:
+                    req = PlanRequest(argv, text, tenant, deadline=deadline)
+                    req.trace = trace
+                    req.session_ctx = ctx
+                    resp = self._dispatch_plan(req)
+                finally:
+                    sess.in_use = False
+            if (
+                resp is not None
+                and resp.get("ok")
+                and resp.get("rc") == 0
+                and ctx.snapshotted
+            ):
+                self.sessions.put(key, sess)
+            return self._v2_plan_resp(resp)
+
+        if op == "plan-delta":
+            digest = str(hdr.get("digest", ""))
+            sess, busy = self.sessions.checkout(key)
+            if sess is None:
+                self._count_fallback(
+                    "session_busy" if busy else "session_absent", tenant
+                )
+                return _resync_full()
+            try:
+                if sess.digest is not None and digest == sess.digest:
+                    # a session whose settled list is stale (or absent)
+                    # re-derives one from the raw shadow (the "rebuild"
+                    # kind) — still no state transfer
+                    kind = (
+                        "rebuild"
+                        if sess.universe_dirty or sess.pl is None
+                        else "delta"
+                    )
+                    ctx = PlanSessionContext(
+                        kind, sess,
+                        resident_pl=sess.pl if kind == "delta" else None,
+                    )
+                    self.sessions.count_delta_hit()
+                    obs.metrics.tenant_count(
+                        "serve.delta_hits", tenant or OTHER_LABEL
+                    )
+                    req = PlanRequest(
+                        argv, None, tenant, deadline=deadline
+                    )
+                    req.trace = trace
+                    req.session_ctx = ctx
+                    return self._v2_plan_resp(self._dispatch_plan(req))
+                # mismatch: offer the row-level diff — the client ships
+                # only the rows whose hashes differ
+                self._count_fallback("session_digest_mismatch", tenant)
+                table = sess.hash_table()
+                return {
+                    "v": PROTO_V2, "ok": True, "op": op,
+                    "resync": "rows", "nrows": len(sess.raw),
+                }, table
+            finally:
+                self.sessions.checkin(sess)
+
+        if op == "plan-rows":
+            digest = str(hdr.get("digest", ""))
+            sess, busy = self.sessions.checkout(key)
+            if sess is None:
+                self._count_fallback(
+                    "session_busy" if busy else "session_absent", tenant
+                )
+                return _resync_full()
+            try:
+                try:
+                    patches = sstate.unpack_rows(blob)
+                except ValueError:
+                    self._count_fallback("session_rows_invalid", tenant)
+                    self._count_resync_full(tenant)
+                    return _resync_full()
+                if not sess.apply_row_patches(patches):
+                    self._count_fallback("session_rows_mismatch", tenant)
+                    self._count_resync_full(tenant)
+                    return _resync_full()
+                if sess.digest != digest:
+                    # the diff was computed against a table an
+                    # interleaved request has since invalidated;
+                    # re-register from ground truth
+                    self._count_fallback("session_rows_mismatch", tenant)
+                    self._count_resync_full(tenant)
+                    return _resync_full()
+                self.sessions.count_resync_rows()
+                obs.metrics.tenant_count(
+                    "serve.resyncs_rows", tenant or OTHER_LABEL
+                )
+                ctx = PlanSessionContext("rows", sess)
+                req = PlanRequest(argv, None, tenant, deadline=deadline)
+                req.trace = trace
+                req.session_ctx = ctx
+                return self._v2_plan_resp(self._dispatch_plan(req))
+            finally:
+                self.sessions.checkin(sess)
+
+        return {
+            "v": PROTO_V2, "ok": False, "op": "error",
+            "error": f"unknown op {op!r}",
+        }, b""
+
+    def _serve_v2(self, conn: socket.socket) -> None:
+        """The per-connection loop after a v2 hello negotiation: same
+        ops as v1 plus the session family, all in binary frames."""
+        while True:
+            try:
+                t_read0 = time.perf_counter()
+                frame = read_frame2(conn)
+                read_s = time.perf_counter() - t_read0
+            except ValueError as exc:
+                self._count_fallback("bad_frame")
+                self._log(f"serve: refused v2 frame: {exc}")
+                try:
+                    write_frame2(conn, {
+                        "v": PROTO_V2, "ok": False, "op": "error",
+                        "error": f"bad frame: {exc}",
+                    })
+                except Exception:
+                    pass
+                return
+            except Exception:
+                return
+            if frame is None:
+                return
+            hdr, blob = frame
+            if hdr.get("v") != PROTO_V2:
+                self._count_fallback("version_mismatch")
+                write_frame2(conn, {
+                    "v": PROTO_V2, "ok": False, "op": "error",
+                    "error": f"protocol version {hdr.get('v')!r}",
+                })
+                return
+            op = str(hdr.get("op", ""))
+            if op == "hello":
+                write_frame2(conn, {**self._hello(), "v": PROTO_V2})
+            elif op == "stats":
+                write_frame2(conn, {**self._stats_doc(), "v": PROTO_V2})
+            elif op == "release":
+                n = self.sessions.release(str(hdr.get("tenant", "")))
+                # no warm tier yet (ROADMAP.md A7b): nothing released
+                # there, the key kept for the wire shape
+                write_frame2(conn, {
+                    "v": PROTO_V2, "ok": True, "op": "release",
+                    "released": n, "released_warm": 0,
+                })
+            elif op == "shutdown":
+                write_frame2(conn, {"v": PROTO_V2, "ok": True})
+                self._stop.set()
+                return
+            elif op in ("plan", "register", "plan-delta", "plan-rows"):
+                self._touch()
+                raw_argv = hdr.get("argv", [])
+                if not isinstance(raw_argv, list):
+                    self._count_fallback("plan_invalid")
+                    write_frame2(conn, {
+                        "v": PROTO_V2, "ok": False, "op": "error",
+                        "error": "plan payload: argv is not a list",
+                    })
+                    return
+                obs.metrics.hist_observe("serve.phase.read", read_s)
+                argv = [str(a) for a in raw_argv]
+                with self._inflight_op():
+                    resp_hdr, resp_blob = self._session_op(
+                        op, hdr, blob, argv
+                    )
+                if faults.should("socket_drop"):
+                    # chaos seam: vanish mid-exchange instead of
+                    # replying — the client sees a dead peer and takes
+                    # its transport-error path (retry, then fallback)
+                    return
+                t_reply0 = time.perf_counter()
+                write_frame2(conn, resp_hdr, resp_blob)
+                obs.metrics.hist_observe(
+                    "serve.phase.reply", time.perf_counter() - t_reply0
+                )
+            else:
+                write_frame2(conn, {
+                    "v": PROTO_V2, "ok": False,
+                    "error": f"unknown op {op!r}",
+                })
+
+    # thread-role: accept-loop
+    def _serve_connection(self, conn: socket.socket) -> None:
+        try:
+            conn.settimeout(PLAN_CONNECTION_TIMEOUT_S)
+            while True:
+                try:
+                    t_read0 = time.perf_counter()
+                    msg = read_frame(conn)
+                    read_s = time.perf_counter() - t_read0
+                except ValueError as exc:
+                    # a structured refusal instead of a dropped
+                    # connection: an oversized length prefix or an
+                    # unparseable payload gets an op-"error" frame with
+                    # the reason, so the client can log WHY it fell back
+                    # in-process instead of a generic fallback
+                    self._count_fallback("bad_frame")
+                    self._log(f"serve: refused frame: {exc}")
+                    try:
+                        write_frame(conn, {
+                            "v": PROTO_VERSION, "ok": False, "op": "error",
+                            "error": f"bad frame: {exc}",
+                        })
+                    except Exception:
+                        pass
+                    return
+                except Exception:
+                    return  # dead peer / mid-frame EOF: nothing to tell
+                if msg is None:
+                    return
+                if msg.get("v") != PROTO_VERSION:
+                    self._count_fallback("version_mismatch")
+                    write_frame(conn, {
+                        "v": PROTO_VERSION, "ok": False, "op": "error",
+                        "error": f"protocol version {msg.get('v')!r}",
+                    })
+                    return
+                op = msg.get("op")
+                # NOTE: only PLAN work resets the idle clock. hello and
+                # the scrape ops are passive — a periodic monitoring
+                # scraper (-metrics-prom on a cron) must not pin an
+                # otherwise-idle daemon alive past -serve-idle-timeout
+                if op == "hello":
+                    t_hello_ns = time.perf_counter_ns()
+                    doc = self._hello()
+                    if msg.get("clock"):
+                        # the opt-in clock handshake (obs/edge.py):
+                        # daemon-monotonic receive/send stamps for the
+                        # client's NTP-style offset estimate. STRICTLY
+                        # request-gated — a plain hello (liveness
+                        # probes, the stats scraper's handshake) gets
+                        # the exact historical doc, preserving the
+                        # hello/stats key-parity contract. recv is
+                        # stamped post-read, so any parse delay inflates
+                        # the client's RTT bound, never skews the
+                        # offset midpoint.
+                        doc["clock"] = {
+                            "recv_ns": t_hello_ns,
+                            "send_ns": time.perf_counter_ns(),
+                        }
+                    write_frame(conn, doc)
+                    mv = msg.get("max_v")
+                    if isinstance(mv, int) and mv >= PROTO_V2:
+                        # both sides advertised v2: every further frame
+                        # on this connection is binary-framed. A v1
+                        # client never sends max_v, so its byte
+                        # sequences mean exactly what they always did.
+                        self._serve_v2(conn)
+                        return
+                elif op == "stats":
+                    # answered HERE, on the connection thread: a live
+                    # scrape must never queue behind (or pause) planning
+                    write_frame(conn, self._stats_doc())
+                elif op == "dump-trace":
+                    write_frame(conn, {
+                        "v": PROTO_VERSION, "ok": True, "op": "dump-trace",
+                        "trace": self.flight.to_perfetto(),
+                    })
+                elif op == "plan":
+                    self._touch()
+                    raw_argv = msg.get("argv", [])
+                    if not isinstance(raw_argv, list):
+                        write_frame(conn, {
+                            "v": PROTO_VERSION, "ok": False, "op": "error",
+                            "error": "plan payload: argv is not a list",
+                        })
+                        return
+                    # the wire half of the served phase chain: how long
+                    # the daemon spent reading this plan frame off the
+                    # socket (client encode + transfer)
+                    obs.metrics.hist_observe("serve.phase.read", read_s)
+                    argv = [str(a) for a in raw_argv]
+                    stdin = msg.get("stdin")
+                    req = PlanRequest(
+                        argv,
+                        str(stdin) if stdin is not None else None,
+                        deadline=_deadline_of(msg),
+                    )
+                    # startup race: the dispatcher is built on the warm
+                    # thread; a plan arriving first waits for it
+                    with self._inflight_op():
+                        resp = self._dispatch_plan(req)
+                    if resp is None:
+                        write_frame(conn, {
+                            "v": PROTO_VERSION, "ok": False, "op": "error",
+                            "error": "daemon dispatcher not ready",
+                        })
+                        return
+                    if faults.should("socket_drop"):
+                        return  # chaos seam: dead peer instead of a reply
+                    t_reply0 = time.perf_counter()
+                    write_frame(conn, resp)
+                    obs.metrics.hist_observe(
+                        "serve.phase.reply",
+                        time.perf_counter() - t_reply0,
+                    )
+                elif op == "shutdown":
+                    write_frame(conn, {"v": PROTO_VERSION, "ok": True})
+                    self._stop.set()
+                    return
+                else:
+                    write_frame(conn, {
+                        "v": PROTO_VERSION, "ok": False,
+                        "error": f"unknown op {op!r}",
+                    })
+        except Exception:
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    # -- lifecycle -------------------------------------------------------
+    # the pidfile-verification rule set: liveness probe + pid-recycling
+    # guard (module functions above)
+    _pid_alive = staticmethod(_pid_alive)
+    _pid_looks_like_daemon = staticmethod(_pid_looks_like_daemon)
+
+    def _pidfile_owner(self) -> Optional[int]:
+        """The pid recorded next to the socket, or None."""
+        try:
+            with open(pidfile_path(self.socket_path)) as f:
+                return int(f.read().strip())
+        except (OSError, ValueError):
+            return None
+
+    def _preflight_socket(self) -> Optional[str]:
+        """None when the socket path is free (stale files swept), an
+        error string when a live daemon already owns it.
+
+        The refusal is PIDFILE-VERIFIED: a socket that answers hello is
+        a live daemon (refuse); a socket that does NOT answer is only
+        refused when the pidfile's process is still alive (it may be
+        mid-startup, wedged, or a different package version — hijacking
+        its socket would orphan it). Leftovers from a SIGKILL'd daemon
+        — socket + pidfile with a dead pid — are swept and replaced
+        instead of blocking the restart."""
+        if not os.path.exists(self.socket_path):
+            # the socket is gone but a SIGKILL can still leave the
+            # pidfile; sweep it so the liveness story stays coherent
+            pid = self._pidfile_owner()
+            if pid is not None and not self._pid_alive(pid):
+                try:
+                    os.unlink(pidfile_path(self.socket_path))
+                except OSError:
+                    pass
+            return None
+        from kafkabalancer_tpu_torch.serve import client
+
+        hello = client.daemon_alive(self.socket_path, timeout=1.0)
+        if hello is not None:
+            return (
+                f"daemon already running on {self.socket_path} "
+                f"(pid {hello.get('pid')})"
+            )
+        pid = self._pidfile_owner()
+        if (
+            pid is not None
+            and pid != os.getpid()
+            and self._pid_alive(pid)
+            and self._pid_looks_like_daemon(pid)
+        ):
+            return (
+                f"socket {self.socket_path} is unresponsive but its "
+                f"pidfile process {pid} is still alive; refusing to "
+                "take it over (kill the process or remove "
+                f"{pidfile_path(self.socket_path)} first)"
+            )
+        for path, what in (
+            (self.socket_path, "socket"),
+            (pidfile_path(self.socket_path), "pidfile"),
+        ):
+            try:
+                os.unlink(path)
+                self._log(
+                    f"serve: swept stale {what} {path}"
+                    + (f" (pid {pid} dead)" if pid is not None else "")
+                )
+            except FileNotFoundError:
+                pass
+            except OSError as exc:
+                if what == "socket":
+                    return f"cannot remove stale socket {path}: {exc}"
+        return None
+
+    # thread-role: accept-loop
+    def serve_forever(self) -> int:
+        """Run until shutdown/idle-timeout/signal; 0 on a clean exit,
+        3 when the socket is unusable (live daemon, bind failure) or the
+        fault schedule is malformed."""
+        err = self._preflight_socket()
+        if err is not None:
+            self._log(f"serve: {err}")
+            return 3
+        listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            listener.bind(self.socket_path)
+        except OSError as exc:
+            self._log(f"serve: cannot bind {self.socket_path}: {exc}")
+            listener.close()
+            return 3
+        listener.listen(16)
+        listener.settimeout(0.5)
+        pid_path = pidfile_path(self.socket_path)
+        try:
+            with open(pid_path, "w") as f:
+                f.write(f"{os.getpid()}\n")
+        except OSError:
+            pid_path = ""
+
+        from kafkabalancer_tpu_torch.ops.tensorize import set_row_cache
+
+        # the always-on live-telemetry feed: every completed span lands
+        # in the flight recorder and the per-phase streaming histograms
+        # (fixed memory). Histograms reset HERE so they are
+        # daemon-lifetime: the stats scrape's reconciliation invariant
+        # (serve.request_s count == serve.requests) holds from request 1
+        obs.metrics.reset_hists()
+        # the tenant dimension resets on the same boundary, and the
+        # families are created NOW so the configured cap binds before
+        # the first observation (cap applies at first creation)
+        obs.metrics.reset_tenants()
+        for fam in _TENANT_HIST_FAMILIES:
+            obs.metrics.tenant_hist(fam, cap=self.tenant_cap)
+        for fam in _TENANT_COUNTER_FAMILIES:
+            obs.metrics.tenant_counter(fam, cap=self.tenant_cap)
+        obs.tracer.set_observer(self._observe_span)
+
+        old_handlers: List[Tuple[int, Any]] = []
+        try:
+            # the chaos seam: armed ONLY here, by explicit operator
+            # intent (-serve-faults, or the environment variable when
+            # the flag is empty); a malformed spec refuses startup — a
+            # chaos run with a typo'd schedule must not silently run
+            # without its faults
+            spec = self.faults_spec or os.environ.get(
+                "KAFKABALANCER_TPU_TORCH_FAULTS", ""
+            )
+            if spec:
+                try:
+                    plan = faults.arm(spec)
+                except ValueError as exc:
+                    self._log(f"serve: bad -serve-faults spec: {exc}")
+                    return 3
+                self._log(f"serve: FAULT INJECTION ARMED: {plan.spec}")
+            if self.speculate:
+                self._log(
+                    "serve: speculative plan-ahead is not yet ported "
+                    "(ROADMAP.md A7b); serving without it"
+                )
+            if self.batching:
+                self._log(
+                    "serve: -serve-microbatch, -serve-batch-mode and "
+                    "-serve-admission-hold have no effect in this "
+                    "package; every request runs solo"
+                )
+
+            if self.warm:
+                # the dispatcher is built on the warm thread (torch
+                # import, CUDA context, kernel load) so the accept loop
+                # answers hello immediately; plans wait on
+                # _dispatcher_ready
+                threading.Thread(
+                    target=self._warm_body, name="serve-warm", daemon=True
+                ).start()
+            else:
+                self._coalescer = self._make_dispatcher()
+                self._dispatcher_ready.set()
+                self._warm_done.set()
+
+            if threading.current_thread() is threading.main_thread():
+                for sig in (signal.SIGTERM, signal.SIGINT):
+                    old_handlers.append((sig, signal.getsignal(sig)))
+                    signal.signal(sig, lambda *_a: self._stop.set())
+
+            self._log(
+                f"serve: listening on {self.socket_path} "
+                f"(pid {os.getpid()}, idle timeout "
+                f"{self.idle_timeout:g}s)" if self.idle_timeout > 0 else
+                f"serve: listening on {self.socket_path} "
+                f"(pid {os.getpid()})"
+            )
+            self._touch()
+            while not self._stop.is_set():
+                self.sessions.sweep()
+                # overload/health maintenance, every accept tick
+                # (~0.5 s): shed queued requests past their deadline,
+                # and run the lane watchdog (quarantine / requeue /
+                # recover)
+                self._admission.sweep()
+                tick_disp = self._coalescer
+                if tick_disp is not None and hasattr(
+                    tick_disp, "health_tick"
+                ):
+                    tick_disp.health_tick(log=self._log)
+                if (
+                    self.idle_timeout > 0
+                    and self._warm_done.is_set()
+                    and self._coalescer is not None
+                    and not self._coalescer.busy()
+                    and not self._admission.busy()
+                    and time.monotonic() - self._last_activity
+                    > self.idle_timeout
+                ):
+                    self._log(
+                        f"serve: idle for {self.idle_timeout:g}s, "
+                        "shutting down"
+                    )
+                    break
+                try:
+                    conn, _addr = listener.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    break
+                threading.Thread(
+                    target=self._serve_connection,
+                    args=(conn,),
+                    name="serve-conn",
+                    daemon=True,
+                ).start()
+        finally:
+            listener.close()
+            # flush the fair queue FIRST (its waiters would otherwise
+            # block their connection threads through dispatcher stop)
+            self._admission.stop()
+            if self._coalescer is not None:
+                self._coalescer.stop()
+            # every shutdown path restores the process-global seams:
+            # a daemon run in a thread of a longer-lived process (the
+            # tests, chip_smoke.py) must leave no fault plan, tracer
+            # observer, shared registry or row cache behind
+            faults.disarm()
+            obs.tracer.set_observer(None)
+            obs.set_shared_registry(False)
+            set_row_cache(None)
+            for sig, handler in old_handlers:
+                try:
+                    signal.signal(sig, handler)
+                except (ValueError, OSError):
+                    pass
+            for path in (self.socket_path, pid_path):
+                if path:
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass
+        with self._lock:
+            n, n_coal = self._requests, self._coalesced
+        if self._lanes:
+            sched = self._coalescer
+            s = sched.stats() if hasattr(sched, "stats") else {}
+            per_lane = ", ".join(
+                f"lane{ln.index}: {ln.requests} req / {ln.busy_s:.1f}s busy"
+                for ln in self._lanes
+            )
+            self._log(
+                f"serve: exiting after {n} request"
+                f"{'s' if n != 1 else ''} ({n_coal} coalesced, "
+                f"{int(s.get('steals', 0))} steals, "
+                f"{int(s.get('cache_hits', 0))} tensorize cache hits; "
+                f"{per_lane})"
+            )
+            return 0
+        cache_stats = self.tensorize_cache.stats()
+        self._log(
+            f"serve: exiting after {n} request"
+            f"{'s' if n != 1 else ''} ({n_coal} coalesced, "
+            f"{cache_stats['hits']} tensorize cache hits)"
+        )
+        return 0

@@ -341,7 +341,7 @@ def launch(
     if err != 0:
         msg = lib.pallas_session_error_string(err).decode()
         raise RuntimeError(f"pallas_session kernel launch failed: {msg} ({err})")
-    pallas_session.launches += 1
+    nvcc.count_launch(pallas_session)
     return log, counts
 
 

@@ -857,6 +857,7 @@ def _decode_packed(
     mslot = packed[ml : ml + n]
     mtgt = packed[2 * ml : 2 * ml + n]
     keep = _superseded_mask(mp, mslot) if drop_superseded else None
+    tap = convergence.mutation_tap()  # a resident session's raw-row shadow
     emitted = 0
     for i in range(n):
         part = dp.partitions[int(mp[i])]
@@ -874,6 +875,8 @@ def _decode_packed(
             part.replicas[0] = tgt
         else:
             part.replicas[slot] = tgt
+        if tap is not None:
+            tap.change(part)
         opl.append(part)
         emitted += 1
     obs.metrics.count("solver.moves_committed", n)

@@ -610,3 +610,93 @@ def test_sweep_on_the_card_matches_plain_versions(cuda_device):
     assert ps.pallas_session.launches == len(scen)
     assert kernel == run(engine="pallas-interpret")
     assert run(engine="xla") == run(engine="xla", scorer=sk.shard_score_plain)
+
+
+def _cli(args, **kw):
+    import io
+
+    from kafkabalancer_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    rc = cli.run(io.StringIO(""), out, err, ["kafkabalancer"] + args, **kw)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _cluster_file(dirname, seed, n_parts=3000, n_brokers=60):
+    import io
+    import os
+
+    from kafkabalancer_tpu_torch.codecs import write_partition_list
+
+    path = os.path.join(dirname, f"c{seed}.json")
+    buf = io.StringIO()
+    write_partition_list(buf, synth_cluster(n_parts, n_brokers, rf=3,
+                                            seed=seed))
+    with open(path, "w") as fh:
+        fh.write(buf.getvalue())
+    return path
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_served_plan_on_the_card_matches_in_process(cuda_device, tmp_path,
+                                                    engine):
+    """The planning daemon with a lane on the card: a served -fused plan
+    (K1 in every iteration) and a served -fused-engine=pallas plan (one
+    B2 launch) equal the in-process plans on the same card, with the
+    same launch counts."""
+    from torch_helpers import running_daemon
+
+    path = _cluster_file(str(tmp_path), 5)
+    args = ["-input-json", f"-input={path}", "-fused", "-fused-batch=100",
+            "-max-reassign=100000", "-min-unbalance=1e-7",
+            f"-fused-engine={engine}"]
+    counter = sk.shard_score if engine == "xla" else ps.pallas_session
+    counter.launches = 0
+    local = _cli(args + ["-no-daemon"], device=cuda_device)
+    want = counter.launches
+    assert local[0] == 0 and want > 0
+    with running_daemon(devices=[cuda_device], lanes=0,
+                        batching=True) as (sock, d, logs):
+        counter.launches = 0
+        served = _cli(args + [f"-serve-socket={sock}"])
+        got = counter.launches
+        assert d._requests == 1
+        assert d._fallbacks == {"session_absent": 1}
+    assert served[:2] == local[:2]
+    assert got == want
+
+
+def test_served_concurrent_on_the_card_matches_solo_plans(cuda_device, tmp_path):
+    """Two concurrent same-bucket -fused clients of one daemon on the
+    card: each prints its in-process plan, and the served requests
+    launch the scoring kernel as often as the two in-process runs."""
+    import threading
+
+    from torch_helpers import running_daemon
+
+    paths = [_cluster_file(str(tmp_path), seed) for seed in (6, 7)]
+    args = ["-input-json", "-fused", "-fused-batch=100",
+            "-max-reassign=100000", "-min-unbalance=1e-7"]
+    sk.shard_score.launches = 0
+    want = [_cli(args + [f"-input={p}", "-no-daemon"], device=cuda_device)
+            for p in paths]
+    want_launches = sk.shard_score.launches
+    with running_daemon(devices=[cuda_device], lanes=0,
+                        batching=True) as (sock, d, _logs):
+        sk.shard_score.launches = 0
+        got = [None, None]
+
+        def client(i):
+            got[i] = _cli(args + [f"-input={paths[i]}",
+                                  f"-serve-socket={sock}"])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert d._requests == 2
+        assert d._fallbacks == {"session_absent": 2}
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    assert sk.shard_score.launches == want_launches

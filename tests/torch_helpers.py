@@ -1,5 +1,8 @@
 """Shared helpers for the port's tests (``tests/test_torch_*.py``)."""
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +12,14 @@ from kafkabalancer_tpu_torch.ops.cost import overload_penalty, pair_frame
 # the suite runs in several worker processes at once; one intra-op thread
 # each keeps torch's CPU kernels from oversubscribing the cores
 torch.set_num_threads(1)
+
+# daemon isolation: a planning daemon of this package on the default
+# per-uid socket must never serve the suite's cli.run() calls. Point the
+# default socket at a path that cannot exist; tests that want a daemon
+# pass -serve-socket explicitly.
+os.environ["KAFKABALANCER_TPU_TORCH_SOCKET"] = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "no-torch-daemon-here.sock"
+)
 
 
 @pytest.fixture
@@ -66,3 +77,46 @@ def synthetic(P, B, device, seed, n_real=None, equal_weights=False):
     return [t["replicas"], t["cols"], t["member"], t["allowed"], t["loads"],
             F, t["bvalid"], scal, s_i.int().contiguous(),
             t_i.int().contiguous(), live.contiguous(), t["crows"]]
+
+
+@contextlib.contextmanager
+def running_daemon(**kw):
+    """The port's planning daemon on a private socket (a fresh
+    ``tempfile.mkdtemp`` directory: pytest's tmp_path is too deep for a
+    unix socket path), served from a thread of this process with CPU
+    lanes unless ``devices`` says otherwise and ``warm=False``. Yields
+    ``(socket_path, daemon, log_lines)``; always shut down, with every
+    wait bounded."""
+    import shutil
+    import tempfile
+    import threading
+    import time
+
+    from kafkabalancer_tpu_torch.serve import client
+    from kafkabalancer_tpu_torch.serve.daemon import Daemon
+
+    d = tempfile.mkdtemp(prefix="kbt-")
+    sock = os.path.join(d, "kb.sock")
+    logs = []
+    kw.setdefault("devices", ["cpu"])
+    kw.setdefault("warm", False)
+    kw.setdefault("idle_timeout", 120.0)
+    daemon = Daemon(sock, log=logs.append, **kw)
+    rc_box = []
+    t = threading.Thread(
+        target=lambda: rc_box.append(daemon.serve_forever()), daemon=True
+    )
+    t.start()
+    try:
+        deadline = time.monotonic() + 30
+        while client.daemon_alive(sock) is None:
+            if time.monotonic() > deadline or not t.is_alive():
+                pytest.fail(f"daemon never became ready: {logs}")
+            time.sleep(0.02)
+        yield sock, daemon, logs
+    finally:
+        client.request_shutdown(sock)
+        t.join(60)
+        shutil.rmtree(d, ignore_errors=True)
+    assert not t.is_alive(), "daemon thread did not exit"
+    assert rc_box == [0], (rc_box, logs)
