@@ -134,9 +134,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    re-syncs, and every fresh client reports ``cli.served`` 1 and no
    in-process fallback. Every fresh client runs ``python -m kafkabalancer_tpu_torch``
    (through ``runpy``, with an exit hook that prints its counters).
+   Phase 13's daemons run without speculation and its clients with
+   ``-no-edge-cache``, as when the phase was added.
+
+14. The rest of the daemon with ``-serve``'s defaults (speculative
+   plan-ahead on, the client edge cache on), on phase 3's cluster:
+   a. the deployment loop ``-fused -fused-batch=100 -max-reassign=1
+   -min-unbalance=1e-7``, 10 rounds of fresh client processes; an applier
+   writes each emitted move into the file and waits on the stats doc for
+   a speculative memo; every round's stdout equals ``-no-daemon`` in
+   process, rounds 2-10 are memo hits, the speculation identity
+   (attempts == hits + misses + poisoned + memos) holds at every scrape;
+   per round the client wall and the edge rung; the speculative runs'
+   K1 launches (the daemon's per-thread launch tally) must be > 0.
+   b. the same loop with ``-fused-engine=pallas``: B2 launches by the
+   speculative runs > 0. c. phase 13f's ``-solver=tpu`` loop (5 rounds)
+   with the defaults, beside 13f's walls. d. a real request for another
+   tenant arriving during a speculative re-plan of the second half of
+   phase 3's plan, once in the run's host head and once in its chunk's
+   session: its answer equals in process, the speculative run is
+   aborted; its queue wait printed. e. a ``-serve
+   -serve-session-spill-dir`` process serves one request and is
+   SIGKILLed; a new process on the same directory answers the next move
+   byte-identically from the restored record (restore_hits 1, no
+   re-register); the times printed. f. ``-watch`` over a
+   ``$KAFKABALANCER_TPU_FAKE_ZK`` tree of the cluster: the first plan and
+   three more after three applied mutations, each equal to ``-no-daemon
+   -from-zk`` on the tree; watch lag and the watch and speculative runs'
+   K1 launches (> 0) printed.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. Phases 6-13 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+after (phase 14 reads the daemon's tally of its internal runs). Phases
+6-14 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -1709,12 +1738,27 @@ def phase_sweep(dev, path):
     return launches
 
 
-# phase 13: a fresh client process runs the package's entry point as
+# phases 13-14: a fresh client process runs the package's entry point as
 # ``python -m kafkabalancer_tpu_torch`` does (runpy), and an exit hook
 # prints one line on stderr: its serve counters (``cli.served``, the
-# ``serve.fallbacks.*`` reasons) and the heavy modules it imported
+# ``serve.fallbacks.*`` reasons), the heavy modules it imported and the
+# edge-cache rung that answered (stat_hit, content_hit, splice or miss;
+# none with -no-edge-cache)
 CLIENT = (
     "import atexit, json, runpy, sys\n"
+    "from kafkabalancer_tpu_torch.serve import edge_cache as ec\n"
+    "rung = []\n"
+    "probe_file, resolve_text = ec.probe_file, ec.resolve_text\n"
+    "def probe(*a, **kw):\n"
+    "    p = probe_file(*a, **kw)\n"
+    "    rung.append('stat_hit' if not p.needs_text else 'miss')\n"
+    "    return p\n"
+    "def resolve(p, text):\n"
+    "    state, hit = resolve_text(p, text)\n"
+    "    if state is not None:\n"
+    "        rung[-1] = 'content_hit' if hit else 'splice'\n"
+    "    return state, hit\n"
+    "ec.probe_file, ec.resolve_text = probe, resolve\n"
     "def report():\n"
     "    heavy = sorted({m.split('.')[0] for m in sys.modules}\n"
     "                   & {'torch', 'numpy', 'jax'})\n"
@@ -1722,7 +1766,8 @@ CLIENT = (
     "    snap = obs.REGISTRY.snapshot().get('counters', {})\n"
     "    c = {k: v for k, v in snap.items()\n"
     "         if k == 'cli.served' or k.startswith('serve.fallbacks.')}\n"
-    "    print('CLIENT ' + json.dumps({'counters': c, 'heavy': heavy}),\n"
+    "    print('CLIENT ' + json.dumps({'counters': c, 'heavy': heavy,\n"
+    "                                  'rung': rung}),\n"
     "          file=sys.stderr, flush=True)\n"
     "atexit.register(report)\n"
     "sys.argv = ['kafkabalancer_tpu_torch'] + sys.argv[1:]\n"
@@ -1866,7 +1911,7 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
         proc = subprocess.Popen(
             [sys.executable, "-m", "kafkabalancer_tpu_torch", "-serve",
              f"-serve-socket={os.path.join(sock_dir, 'fresh.sock')}",
-             "-serve-idle-timeout=300"],
+             "-serve-idle-timeout=300", "-serve-speculate-off"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         fresh_sock = os.path.join(sock_dir, "fresh.sock")
@@ -1895,9 +1940,12 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
             f"{d.warm_seconds} s (kernel libraries already loaded by phase 1); "
             f"{[m for m in logs if 'lane' in m]}")
 
+        # phase 13's clients run without the edge cache (and its daemons
+        # without speculation, the Daemon default), so its numbers and its
+        # exact fallback counts stay those of the phase as it was added
         fused_args = ["-input-json", "-input", path, "-fused",
                       "-fused-batch=100", f"-max-reassign={MAIN_REASSIGN}",
-                      "-min-unbalance=1e-7"]
+                      "-min-unbalance=1e-7", "-no-edge-cache"]
         pallas_args = fused_args + ["-fused-engine=pallas"]
         sent = 0
         # 13b/13c: served from fresh client processes, each path's counts
@@ -1938,10 +1986,13 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
         shutil.copyfile(path, loop_path)
         loop_args = ["-input-json", "-input", loop_path, "-solver=tpu",
                      "-max-reassign=1", "-min-unbalance=1e-7"]
+        loop_walls = []
         for rnd in range(5):
             rc, want, _e, _w = run_cli(loop_args + ["-no-daemon"])
             _rc, out, _err, wall, _rep = run_client(
-                loop_args + [f"-serve-socket={sock}"], f"loop round {rnd}")
+                loop_args + [f"-serve-socket={sock}", "-no-edge-cache"],
+                f"loop round {rnd}")
+            loop_walls.append(wall)
             sent += 1
             if rc != 0 or out != want or not json.loads(out).get("partitions"):
                 fail(f"loop round {rnd}: the served move differs from the "
@@ -1994,7 +2045,7 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
                                                  seed=SEED + 10 + k)))
             sk.shard_score.launches = 0
             rc, want, _e, _w = run_cli(["-input-json", "-input", pk]
-                                       + fused_args[3:] + ["-no-daemon"])
+                                       + fused_args[3:-1] + ["-no-daemon"])
             k1_solo.append(sk.shard_score.launches)
             if rc != 0:
                 fail(f"concurrent cluster {k}: in-process rc {rc}")
@@ -2028,7 +2079,456 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
     finally:
         shutil.rmtree(sock_dir, ignore_errors=True)
     log(f"serve: phase 13 took {time.perf_counter() - t_phase} s")
-    return counts
+    return counts, loop_walls
+
+
+# phase 14: the rest of the planning daemon with -serve's defaults —
+# speculative plan-ahead on (serve/speculate.py), the client edge cache on
+# (serve/edge_cache.py) — plus the warm session tier (serve/spill.py) and
+# -watch, on phase 3's cluster
+SPEC_ROUNDS = 10
+SPEC_FLAGS = ["-fused", "-fused-batch=100", "-max-reassign=1",
+              "-min-unbalance=1e-7"]
+
+
+def apply_plan(path, out):
+    """The deployment loop's applier: the emitted moves written into the
+    cluster file (the whole file rewritten)."""
+    with open(path) as fh:
+        text = fh.read()
+    final, _rows = planned(text, out)
+    with open(path, "w") as fh:
+        fh.write(plan_text(final))
+
+
+def spec_identity(st, what):
+    if st["attempts"] != (st["hits"] + st["misses"] + st["poisoned"]
+                          + st["memos"]):
+        fail(f"{what}: the speculation identity broke: {st}")
+
+
+def spec_settled(sock, d, what, attempts0, timeout=120):
+    """Wait until the speculator of ``d`` has attached a memo past
+    ``attempts0`` (its attempts before the request) and is out of flight,
+    then return the stats doc; the speculation identity must hold at
+    every read."""
+    from kafkabalancer_tpu_torch.serve import client
+
+    deadline = time.monotonic() + timeout
+    while True:
+        st = d.speculator.stats()
+        spec_identity(st, what)
+        if st["memos"] >= 1 and st["attempts"] > attempts0 and not (
+            st["inflight"]
+        ):
+            break
+        if time.monotonic() > deadline:
+            fail(f"{what}: no speculative memo after {timeout} s: {st}")
+        time.sleep(0.02)
+    doc = client.fetch_stats(sock)
+    spec_identity(doc["speculation"], what)
+    return doc
+
+
+# the in-process answers of a deployment loop, computed by a process of
+# their own while the daemon of this process serves the same loop: each
+# round ``cli.run -no-daemon`` on the file, then the applier
+ORACLE_CHAIN = (
+    "import io, json, sys\n"
+    "import chip_smoke\n"
+    "from kafkabalancer_tpu_torch import cli\n"
+    "path, rounds = sys.argv[1], int(sys.argv[2])\n"
+    "args = (['kafkabalancer', '-input-json', '-input', path]\n"
+    "        + sys.argv[3:] + ['-no-daemon'])\n"
+    "outs = []\n"
+    "for _ in range(rounds):\n"
+    "    out, err = io.StringIO(), io.StringIO()\n"
+    "    rc = cli.run(io.StringIO(''), out, err, args)\n"
+    "    outs.append([rc, out.getvalue()])\n"
+    "    if rc != 0 or not json.loads(out.getvalue()).get('partitions'):\n"
+    "        break\n"
+    "    chip_smoke.apply_plan(path, out.getvalue())\n"
+    "print(json.dumps(outs))\n"
+)
+
+
+def start_oracle_chain(path, flags, what, rounds):
+    """Start the in-process answers of ``rounds`` loop rounds on a copy
+    of ``path`` in a process of their own (:data:`ORACLE_CHAIN`)."""
+    import shutil
+
+    copy = os.path.join("chiprun_out", f"smoke_{what}_oracle.json")
+    shutil.copyfile(path, copy)
+    return subprocess.Popen(
+        [sys.executable, "-c", ORACLE_CHAIN, copy, str(rounds)] + flags,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def spec_launches(d, kind="spec"):
+    with d._lock:
+        return dict(d.internal_launches.get(kind, {}))
+
+
+def spec_loop(d, sock, path, flags, what, rounds, oracle):
+    """A deployment loop through the speculating daemon ``d``: per round a
+    fresh client process, the applier writes the move, and the next round
+    starts once the speculator holds the next memo. Rounds past the first
+    must be memo hits; every round's stdout must equal ``-no-daemon`` on
+    the same file (``oracle``: :func:`start_oracle_chain`'s process).
+    Returns the client walls and the launches the speculative runs made,
+    by kernel."""
+    import shutil
+
+    loop_path = os.path.join("chiprun_out", f"smoke_{what}_cluster.json")
+    shutil.copyfile(path, loop_path)
+    args = ["-input-json", "-input", loop_path] + flags
+    before = spec_launches(d)
+    walls = []
+    served = []
+    for rnd in range(rounds):
+        st0 = d.speculator.stats()
+        _rc, out, _err, wall, rep = run_client(
+            args + [f"-serve-socket={sock}"], f"{what} round {rnd}")
+        served.append(out)
+        if not json.loads(out).get("partitions"):
+            fail(f"{what} round {rnd}: no move served")
+        hit = d.speculator.stats()["hits"] - st0["hits"]
+        if rnd > 0 and hit != 1:
+            fail(f"{what} round {rnd}: not a memo hit "
+                 f"({d.speculator.stats()})")
+        apply_plan(loop_path, out)
+        doc = spec_settled(sock, d, f"{what} round {rnd}", st0["attempts"])
+        walls.append(wall)
+        log(f"spec {what} [{CARD}]: round {rnd}: client wall {wall} s, edge "
+            f"rung {rep['rung']}, {'memo hit' if hit else 'planned live'}; "
+            f"speculation {doc['speculation']}")
+    o_out, o_err = oracle.communicate(timeout=600)
+    if oracle.returncode != 0:
+        fail(f"{what}: the in-process answers failed: {o_err[-2000:]}")
+    wants = json.loads(o_out.strip().splitlines()[-1])
+    if [w[1] for w in wants] != served or any(w[0] != 0 for w in wants):
+        bad = next((k for k, w in enumerate(wants)
+                    if k >= len(served) or w != [0, served[k]]), len(wants))
+        fail(f"{what}: round {bad}'s served move differs from cli.run "
+             f"-no-daemon on the same file")
+    log(f"spec {what} [{CARD}]: every round's served move equals cli.run "
+        f"-no-daemon on the same file")
+    after = spec_launches(d)
+    made = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    log(f"spec {what} [{CARD}]: {rounds} rounds, client walls {walls} s; "
+        f"kernel launches of the speculative runs {made}")
+    return walls, made
+
+
+def spec_preempt(path, xla_plan, sock_dir):
+    """14d: a real request for another tenant arrives while a speculative
+    re-plan of the second half of phase 3's plan is in flight: once 0.05
+    s after the run starts (in its host head: settle, encode) and once
+    0.05 s after its chunk has started (in the session on the card). The
+    chunk's start is observed by wrapping ``scan._run_chunk`` in this
+    process for the phase (the daemon runs in this process)."""
+    import shutil
+    import threading
+
+    from kafkabalancer_tpu_torch.serve import client
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    chunk_started = threading.Event()
+    real_chunk = scan._run_chunk
+
+    def run_chunk(*a, **kw):
+        if threading.current_thread().name.startswith("serve-int-"):
+            chunk_started.set()
+        return real_chunk(*a, **kw)
+
+    moves = len(json.loads(xla_plan)["partitions"])
+    b_want = None
+    sock = os.path.join(sock_dir, "p.sock")
+    d, t, rc_box, logs = serving_daemon(sock, speculate=True)
+    d._warm_done.wait(240)
+    scan._run_chunk = run_chunk
+    try:
+        for k, where in enumerate(("host head", "chunk")):
+            a_path = os.path.join("chiprun_out", f"smoke_preempt_a{k}.json")
+            b_path = os.path.join("chiprun_out", f"smoke_preempt_b{k}.json")
+            for p in (a_path, b_path):
+                shutil.copyfile(path, p)
+            a_args = ["-input-json", "-input", a_path, "-fused",
+                      "-fused-batch=100", f"-max-reassign={moves // 2}",
+                      "-min-unbalance=1e-7"]
+            b_args = ["-input-json", "-input", b_path] + SPEC_FLAGS
+            if b_want is None:
+                _rc, b_want, _e, _w = run_cli(b_args + ["-no-daemon"])
+            while d.speculator.stats()["inflight"]:
+                time.sleep(0.01)
+            aborted0 = d.speculator.stats()["aborted"]
+            rc, _a_out, _e, a_wall = run_cli(
+                a_args + [f"-serve-socket={sock}"])
+            if rc != 0:
+                fail(f"14d: tenant A's request returned {rc}")
+            chunk_started.clear()
+            deadline = time.monotonic() + 60
+            while not d.speculator.stats()["inflight"]:
+                if time.monotonic() > deadline:
+                    fail("14d: the speculative run never started")
+                time.sleep(0.0005)
+            t_spec = time.perf_counter()
+            if where == "chunk" and not chunk_started.wait(60):
+                fail("14d: the speculative run never reached its chunk")
+            time.sleep(0.05)
+            rc, b_out, _e, b_wall = run_cli(
+                b_args + [f"-serve-socket={sock}"])
+            since = time.perf_counter() - t_spec - b_wall
+            if rc != 0 or b_out != b_want:
+                fail("14d: the preempting request's answer differs from "
+                     "in process")
+            while d.speculator.stats()["inflight"]:
+                time.sleep(0.01)
+            doc = client.fetch_stats(sock)
+            st = doc["speculation"]
+            spec_identity(st, "14d")
+            if st["aborted"] <= aborted0:
+                fail(f"14d: the speculative run was not aborted: {st}")
+            queue = doc["tenants"]["top"][os.path.abspath(b_path)]["queue_s"]
+            log(f"spec 14d [{CARD}]: tenant A served {moves // 2} of phase "
+                f"3's {moves} moves in {a_wall} s; a real request for "
+                f"tenant B arrived {since} s into the speculative re-plan of "
+                f"the rest (in its {where}): its answer equals in process, "
+                f"its wall {b_wall} s, its queue wait behind the "
+                f"speculative run {queue['max']} s; speculation {st}")
+    finally:
+        scan._run_chunk = real_chunk
+    stop_daemon(sock, d, t, rc_box, logs, 4, {"session_absent": 4},
+                "(daemon 14d)")
+
+
+def spec_warm_tier(path, sock_dir):
+    """14e: the warm tier survives a SIGKILL of a ``-serve`` process."""
+    import shutil
+    import signal
+
+    from kafkabalancer_tpu_torch.serve import client
+
+    sock = os.path.join(sock_dir, "w.sock")
+    spill_dir = os.path.join(sock_dir, "spill")
+    e_path = os.path.join("chiprun_out", "smoke_warm_cluster.json")
+    shutil.copyfile(path, e_path)
+    e_args = ["-input-json", "-input", e_path] + SPEC_FLAGS
+
+    def spawn():
+        """Start a ``-serve`` process and, while it warms, the in-process
+        answer on the file; returns the process, its seconds to warm and
+        the answer."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kafkabalancer_tpu_torch", "-serve",
+             f"-serve-socket={sock}", f"-serve-session-spill-dir={spill_dir}",
+             "-serve-idle-timeout=300"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        )
+        _rc, want, _e, _w = run_cli(e_args + ["-no-daemon"])
+        while True:
+            hello = client.daemon_alive(sock)
+            if hello is not None and not hello.get("warming"):
+                return proc, time.perf_counter() - t0, want
+            if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                proc.kill()
+                fail(f"14e: the -serve process never warmed: "
+                     f"{proc.communicate()[1][-2000:]}")
+            time.sleep(0.05)
+
+    proc, warm1, want1 = spawn()
+    try:
+        _rc, out1, _e, wall1, rep1 = run_client(
+            e_args + [f"-serve-socket={sock}"], "14e first request")
+        if out1 != want1:
+            fail("14e: the first served plan differs from in process")
+        doc1 = client.fetch_stats(sock)
+        if doc1["paging"]["spills"] < 1:
+            fail(f"14e: nothing spilled: {doc1['paging']}")
+        apply_plan(e_path, out1)
+        proc.send_signal(signal.SIGKILL)
+        proc.communicate(timeout=60)
+        proc, warm2, want2 = spawn()
+        adopted = client.fetch_stats(sock)["paging"]["adopted"]
+        _rc, out2, _e, wall2, rep2 = run_client(
+            e_args + [f"-serve-socket={sock}"], "14e restore")
+        doc2 = client.fetch_stats(sock)
+        pg = doc2["paging"]
+        if out2 != want2:
+            fail("14e: the restored session's plan differs from in process")
+        if (pg["restore_hits"], doc2["sessions"]["registered"],
+                adopted) != (1, 0, 1):
+            fail(f"14e: not a restore hit without a re-register: {pg} "
+                 f"{doc2['sessions']} adopted {adopted}")
+        log(f"spec 14e [{CARD}]: a -serve process warmed in {warm1} s "
+            f"(the in-process answer computed meanwhile), "
+            f"served the first request in {wall1} s (client wall; daemon "
+            f"{doc1['hists']['serve.request_s']['sum']} s, edge rung "
+            f"{rep1['rung']}), spilled it ({doc1['paging']['warm_bytes']} "
+            f"bytes) and was SIGKILLed; the next process warmed in {warm2} "
+            f"s, adopted {adopted} record and answered the next move "
+            f"byte-identically from it in {wall2} s (client wall; daemon, "
+            f"restore included, {doc2['hists']['serve.request_s']['sum']} "
+            f"s, edge rung {rep2['rung']}); paging {pg}")
+        if not client.request_shutdown(sock):
+            fail("14e: the shutdown op was not acknowledged")
+        proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            fail(f"14e: the -serve process exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+
+
+def spec_watch(path, sock_dir):
+    """14f: ``-watch`` over the file-backed fake ZK of phase 3's cluster;
+    returns the watch and speculative runs' launches. The applier writes
+    each emitted move into the tree at once (the next tick then finds the
+    speculative run of that very state in flight and waits for it); the
+    in-process answer of each emitted plan is computed afterwards on a
+    copy of the tree it was planned from."""
+    import copy
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.serve import client
+
+    def publish(root, tree, topic):
+        topics = os.path.join(root, "brokers", "topics")
+        os.makedirs(topics, exist_ok=True)
+        tmp = os.path.join(topics, topic + ".tmp")
+        with open(tmp, "w") as fh:
+            json.dump({"version": 1, "partitions": tree[topic]}, fh)
+        os.replace(tmp, os.path.join(topics, topic))
+
+    with open(path) as fh:
+        pl = get_partition_list_from_reader(fh.read(), True)
+    tree = {}
+    for p in pl.partitions:
+        tree.setdefault(p.topic, {})[str(p.partition)] = list(p.replicas)
+    root = os.path.join(sock_dir, "zk")
+    for topic in tree:
+        publish(root, tree, topic)
+    os.environ["KAFKABALANCER_TPU_FAKE_ZK"] = root
+    emit = os.path.join(sock_dir, "plans")
+    # the ZK tree carries no weights: at the default -min-unbalance (0.01)
+    # no single move of the unweighted cluster qualifies, so the watch
+    # argv keeps the loop's -min-unbalance=1e-7
+    watch_argv = ["-no-daemon=true"] + [
+        f + "=true" if "=" not in f else f for f in SPEC_FLAGS
+    ]
+    sock = os.path.join(sock_dir, "z.sock")
+    planned_from = []
+    plans = []
+    try:
+        d, t, rc_box, logs = serving_daemon(
+            sock, speculate=True, watch_conn="zk1:2181", watch_emit=emit,
+            watch_poll=0.2, watch_argv=watch_argv)
+        d._warm_done.wait(240)
+        for rnd in range(4):
+            deadline = time.monotonic() + 120
+            name = os.path.join(emit, f"plan-{rnd + 1:06d}.json")
+            while not os.path.exists(name):
+                if time.monotonic() > deadline:
+                    fail(f"14f: no plan {rnd + 1} emitted: "
+                         f"{client.fetch_watch(sock)}")
+                time.sleep(0.005)
+            with open(name) as fh:
+                got = fh.read()
+            before = copy.deepcopy(tree)
+            if rnd < 3:
+                # the applier: the emitted move written to the tree
+                for row in json.loads(got)["partitions"]:
+                    tree[row["topic"]][str(row["partition"])] = (
+                        row["replicas"])
+                    publish(root, tree, row["topic"])
+            snap = os.path.join(sock_dir, f"zk-{rnd}")
+            for topic in before:
+                publish(snap, before, topic)
+            planned_from.append(snap)
+            with open(name[:-len(".json")] + ".meta") as fh:
+                meta = json.load(fh)
+            w = client.fetch_watch(sock)
+            plans.append(got)
+            log(f"spec 14f [{CARD}]: plan {rnd + 1}: spec_hit "
+                f"{meta['spec_hit']}, event lag {w['watch']['last_event_lag_s']}"
+                f" s, plan {w['watch']['last_plan_s']} s")
+        w = client.fetch_watch(sock)
+        spec_identity(w["speculation"], "14f")
+        made = {"watch": spec_launches(d, "watch"),
+                "spec": spec_launches(d, "spec")}
+        stop_daemon(sock, d, t, rc_box, logs, 0, {}, "(daemon 14f)")
+        for rnd, snap in enumerate(planned_from):
+            os.environ["KAFKABALANCER_TPU_FAKE_ZK"] = snap
+            _rc, want, _e, _w = run_cli(["-from-zk=zk1:2181"] + SPEC_FLAGS
+                                        + ["-no-daemon"])
+            if plans[rnd] != want:
+                fail(f"14f: emitted plan {rnd + 1} differs from -no-daemon "
+                     f"on the tree it was planned from")
+        k1 = sum(m.get("shard_score", 0) for m in made.values())
+        if k1 <= 0:
+            fail("14f: the watch path launched no shard_score kernel")
+        if w["watch"]["errors"] or w["watch"]["plans_emitted"] < 4:
+            fail(f"14f: {w['watch']}")
+        log(f"spec 14f [{CARD}]: the 4 emitted plans equal -no-daemon on the "
+            f"trees they were planned from; watch {w['watch']}; speculation "
+            f"{w['speculation']}; kernel launches {made}")
+    finally:
+        del os.environ["KAFKABALANCER_TPU_FAKE_ZK"]
+    return made
+
+
+def phase_spec(path, xla_plan, loop13_walls):
+    """Phase 14 (see the module docstring); returns the speculative and
+    watch runs' launches by path."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    sock_dir = tempfile.mkdtemp(prefix="kbt-")
+    out = {}
+    loops = (
+        ("14a", SPEC_FLAGS, SPEC_ROUNDS),
+        ("14b", SPEC_FLAGS + ["-fused-engine=pallas"], SPEC_ROUNDS),
+        ("14c", ["-solver=tpu", "-max-reassign=1", "-min-unbalance=1e-7"], 5),
+    )
+    # the three loops' in-process answers, each in a process of its own,
+    # computed while the daemon serves the loops
+    oracles = {what: start_oracle_chain(path, flags, what, rounds)
+               for what, flags, rounds in loops}
+    try:
+        # 14a-c: one speculating daemon, three deployment loops
+        sock = os.path.join(sock_dir, "s.sock")
+        d, t, rc_box, logs = serving_daemon(sock, speculate=True)
+        if not d._warm_done.wait(240):
+            fail("the speculating daemon never finished its warm body")
+        walls = {}
+        for what, flags, rounds in loops:
+            walls[what], out[what] = spec_loop(d, sock, path, flags, what,
+                                               rounds, oracles[what])
+        if out["14a"].get("shard_score", 0) <= 0:
+            fail("14a: the speculative runs launched no shard_score kernel")
+        if out["14b"].get("pallas_session", 0) <= 0:
+            fail("14b: the speculative runs launched no pallas_session "
+                 "kernel")
+        log(f"spec 14c [{CARD}]: -solver=tpu loop client walls "
+            f"{walls['14c']} s with speculation and the edge cache; phase "
+            f"13f (neither) {loop13_walls} s")
+        stop_daemon(sock, d, t, rc_box, logs, 2 * SPEC_ROUNDS + 5,
+                    {"session_absent": 3}, "(daemon 14a-c)")
+        spec_preempt(path, xla_plan, sock_dir)
+        spec_warm_tier(path, sock_dir)
+        out["14f"] = spec_watch(path, sock_dir)
+    finally:
+        for proc in oracles.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    log(f"spec: phase 14 took {time.perf_counter() - t_phase} s")
+    return out
 
 
 def main() -> int:
@@ -2120,9 +2620,14 @@ def main() -> int:
 
     # phase 13: the planning daemon, each served path's counts zeroed just
     # before it
-    serve_launches = phase_serve(cluster_path, xla_plan, launches,
-                                 pallas_plan, b2_launches)
+    serve_launches, loop13_walls = phase_serve(
+        cluster_path, xla_plan, launches, pallas_plan, b2_launches)
     done(13)
+
+    # phase 14: speculation, the edge cache, the warm tier and -watch;
+    # the speculative and watch runs' launches counted by the daemon
+    spec_made = phase_spec(cluster_path, xla_plan, loop13_walls)
+    done(14)
 
     # phase 4: scale
     phase_scale(dev)
@@ -2152,6 +2657,12 @@ def main() -> int:
             "13b: served -fused -fused-batch=100": serve_launches["fused"],
             "13e: four concurrent served 10k x 100 -fused requests":
                 serve_launches["concurrent"],
+            "14a: speculative runs of the -fused -max-reassign=1 loop":
+                spec_made["14a"].get("shard_score", 0),
+            "14f: -watch runs": spec_made["14f"]["watch"].get(
+                "shard_score", 0),
+            "14f: speculative runs under -watch": spec_made["14f"][
+                "spec"].get("shard_score", 0),
         },
         "colocation_variant": k1_colo,
         "shard_shapes": shard_times,
@@ -2173,6 +2684,8 @@ def main() -> int:
             "12: sweep engine=pallas (one per scenario)":
                 sweep_launches["pallas"][1],
             "13c: served -fused -fused-engine=pallas": serve_launches["pallas"],
+            "14b: speculative runs of the -fused-engine=pallas loop":
+                spec_made["14b"].get("pallas_session", 0),
         },
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],

@@ -35,7 +35,11 @@ device="cpu")`` asks for that).
 this package on the resolved socket (``serve/client.py``) and relays
 its stdout, stderr and exit code; with no such daemon it plans in
 process, byte-identical. ``-no-daemon``, ``-pprof`` and an explicit
-``run(..., device=...)`` always plan in process.
+``run(..., device=...)`` always plan in process. As in the reference, the
+daemon speculates the next move by default (``-serve-speculate``), keeps
+evicted sessions on disk with ``-serve-session-spill-dir``, and with
+``-watch`` plans from ZooKeeper itself; the forwarding client keeps its
+edge cache beside the socket (``-edge-cache``).
 
 Every other flag of the reference is parsed; a flag whose feature is not
 ported yet exits 3 with a one-line message naming its ROADMAP.md item
@@ -130,7 +134,6 @@ def _apply_replicas(p: Partition, changed: Partition) -> Partition:
 # with the ROADMAP.md item that ports each: (name, kind, default, usage,
 # item). They are parsed like the reference's; given a non-default value,
 # each one exits 3 before any input is read.
-_SERVING_B = "A7b (serving: speculation, -watch, warm session tier)"
 _EXPORTERS = "A1 (telemetry exporters)"
 _NOT_PORTED = [
     ("jax-profile", "string", "", "Device trace directory", "A9 (tooling)"),
@@ -140,13 +143,6 @@ _NOT_PORTED = [
     ("explain", "string", "", "Plan-explanation document path", _EXPORTERS),
     ("serve-prewarm", "string", "", "Daemon prewarm shape grid",
      "A8 (cold start)"),
-    ("serve-session-spill-dir", "string", "", "Daemon warm session tier",
-     _SERVING_B),
-    ("serve-warm-cap-mb", "float", 256.0, "Daemon warm tier budget MB",
-     _SERVING_B),
-    ("watch", "string", "", "Daemon watch-driven controller", _SERVING_B),
-    ("watch-emit", "string", "", "Watch mode plan sink", _SERVING_B),
-    ("watch-poll", "float", 5.0, "Watch mode poll seconds", _SERVING_B),
     ("serve-stats", "bool", False, "Scrape a daemon's telemetry", _EXPORTERS),
     ("metrics-prom", "string", "", "Scrape a daemon as Prometheus text",
      _EXPORTERS),
@@ -250,7 +246,16 @@ def _run_scrape(
 def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
     """Forward one parsed invocation to a live daemon (serve/client.py).
     Returns ``(served, stdin_text)``: the daemon's result or None (plan
-    in process), and the input read from ``i`` when it was read."""
+    in process), and the input read from ``i`` when it was read.
+
+    The edge residency cache (serve/edge_cache.py, on unless
+    ``-no-edge-cache``/``-edge-cache=false``/``-serve-no-session``): the
+    per-tenant shadow digest cache beside the socket. A stable stat hit
+    skips the input read entirely; a changed file pays an
+    O(changed-rows) splice instead of the O(P) full parse; a ``-from-zk``
+    invocation consumes row-level change events. All rungs degrade to
+    the full read on any doubt — the cache can cost a fallback, never a
+    wrong digest."""
     from kafkabalancer_tpu_torch.serve import client as serve_client
     from kafkabalancer_tpu_torch.serve.protocol import resolve_socket_path
 
@@ -259,45 +264,130 @@ def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
     if not serve_client.socket_exists(sock):
         return None, None
     input_path, zk = fl["input"].value, fl["from-zk"].value
+    is_json = fl["input-json"].value
+    topics = [t for t in fl["topics"].value.split(",") if t]
+    no_session = fl["serve-no-session"].value
+    ec_on = (
+        fl["edge-cache"].value
+        and not fl["no-edge-cache"].value
+        and not no_session
+    )
+    if ec_on:
+        from kafkabalancer_tpu_torch.serve import edge_cache as serve_ec
+    ec_probe = None
+    ec_state = None
+    ec_hit: Optional[bool] = None
+    ec_zk_fast = False
     stdin_text: Optional[str] = None
     # the edge recorder (obs/edge.py) times the client phase chain and
     # carries the trace context the daemon stamps into its telemetry
     edge_rec = obs.edge.EdgeContext()
     with edge_rec.install():
         if input_path != "":
-            # the CLIENT reads the file and sends its text: the daemon
-            # needs no filesystem access, and an unreadable file falls
-            # through to the in-process open, whose error names the path
-            # exactly as the user spelled it
-            try:
-                with edge_rec.phase("input_read"):
-                    with open(input_path, "r") as fh:
-                        stdin_text = fh.read()
-            except OSError:
-                return None, None
+            if ec_on:
+                with edge_rec.phase("cache_probe"):
+                    ec_probe = serve_ec.probe_file(
+                        sock,
+                        fl["serve-session"].value
+                        or os.path.abspath(input_path),
+                        input_path, is_json, topics,
+                    )
+            if ec_probe is not None and not ec_probe.needs_text:
+                # rung 1: a stable stat hit — the entry header carries
+                # the proven digest, so the read itself is skipped (the
+                # text stays lazy for resync/register)
+                ec_state = ec_probe.state
+                ec_hit = True
+            else:
+                # the CLIENT reads the file and sends its text: the
+                # daemon needs no filesystem access, and an unreadable
+                # file falls through to the in-process open, whose error
+                # names the path exactly as the user spelled it
+                try:
+                    with edge_rec.phase("input_read"):
+                        with open(input_path, "r") as fh:
+                            stdin_text = fh.read()
+                except OSError:
+                    return None, None
+                if ec_probe is not None:
+                    # rungs 2+3: content memcmp (proves the cached
+                    # digest) or the incremental row-ladder splice
+                    with edge_rec.phase("cache_probe"):
+                        ec_state, rhit = serve_ec.resolve_text(
+                            ec_probe, stdin_text
+                        )
+                    ec_hit = bool(rhit)
         elif zk == "":
             with edge_rec.phase("input_read"):
                 stdin_text = i.read()
+        elif ec_on:
+            # -from-zk fast path: probe the cached synthesized state
+            # against per-topic payload digests; None → forward the flag
+            # as before, so the daemon reproduces connection errors
+            with edge_rec.phase("cache_probe"):
+                zk_res = serve_ec.probe_zk(sock, zk, topics)
+            if zk_res is not None:
+                ec_state = zk_res.state
+                ec_hit = zk_res.hit
+                ec_zk_fast = True
         with edge_rec.phase("canonicalize"):
             # the tenant: an explicit -serve-session name, else the
-            # input path ("-" for stdin); a v2 daemon keys its resident
-            # sessions by (tenant, planning-flags signature)
+            # input path ("-" for stdin, "zk:<conn>" for the zookeeper
+            # fast path); a v2 daemon keys its resident sessions by
+            # (tenant, planning-flags signature)
             tenant = fl["serve-session"].value or (
                 os.path.abspath(input_path) if input_path != ""
-                else ("-" if stdin_text is not None else "")
+                else (
+                    "zk:" + zk if ec_zk_fast
+                    else ("-" if stdin_text is not None else "")
+                )
             )
             fwd_argv = _forward_argv(f)
+            if ec_zk_fast:
+                # the synthesized JSON state replaces the daemon-side
+                # zookeeper read: strip the zk flag and mark the riding
+                # input as JSON (an in-process fallback still reads
+                # zookeeper directly)
+                fwd_argv = [
+                    a for a in fwd_argv if not a.startswith("-from-zk=")
+                ]
+                fwd_argv.append("-input-json=true")
             session_spec = None
             if (
-                not fl["serve-no-session"].value
-                and zk == ""
-                and stdin_text is not None
+                not no_session
+                and (zk == "" or ec_zk_fast)
+                and (stdin_text is not None or ec_state is not None)
             ):
                 session_spec = serve_client.SessionSpec(
-                    tenant=tenant, text=stdin_text,
-                    is_json=fl["input-json"].value,
-                    topics=[t for t in fl["topics"].value.split(",") if t],
+                    tenant=tenant,
+                    text=stdin_text if stdin_text is not None else "",
+                    is_json=True if ec_zk_fast else is_json,
+                    topics=topics,
                 )
+            if (
+                ec_on
+                and input_path != ""
+                and ec_state is None
+                and stdin_text is not None
+                and session_spec is not None
+                and ec_probe is not None
+                and ec_probe.stat is not None
+            ):
+                # edge-cache miss: pay the O(P) digest HERE (the phase
+                # forward_plan would charge) so the canonical state is
+                # persisted for the next invocation; the probe's
+                # pre-read stat key pins the text to one stat point
+                with edge_rec.phase("digest"):
+                    from kafkabalancer_tpu_torch.serve import state as sstate
+
+                    ec_state = sstate.client_state(
+                        stdin_text, is_json, topics
+                    )
+                if ec_state is not None:
+                    serve_ec.persist_state(
+                        sock, tenant, input_path, is_json, topics,
+                        stdin_text, ec_state, ec_probe.stat,
+                    )
         declined: List[str] = []
 
         def note(reason: str) -> None:
@@ -305,6 +395,12 @@ def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
             # to a served answer) lands as a counter in this registry
             obs.metrics.count(f"serve.fallbacks.{reason}")
 
+        if ec_hit is not None:
+            # edge-residency attribution: rides the trace context so the
+            # daemon stamps client.edge_cache_hit into the served
+            # request's gauges; the local gauge serves in-process readers
+            edge_rec.cache_hit = ec_hit
+            obs.metrics.gauge("client.edge_cache_hit", bool(ec_hit))
         with obs.span(
             "serve.forward", socket=sock, trace_id=edge_rec.trace_id,
         ) as fwd_sp:
@@ -317,6 +413,7 @@ def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
                 tenant=tenant,
                 client_timeout=max(0.0, fl["serve-client-timeout"].value),
                 edge=edge_rec,
+                cached_state=ec_state,
             )
         if served is None:
             edge_rec.note_fallback()
@@ -605,18 +702,60 @@ def _run_impl(
             "dispatch_delay, socket_drop, transfer_fail) — chaos "
             "testing only, inert by default",
         )
+        f_serve_spill_dir = f.string(
+            "serve-session-spill-dir",
+            "",
+            "Daemon: the warm session tier — evicted/expired/shutdown "
+            "sessions spill to checksummed records in this directory "
+            "and a later digest-matching request restores them without "
+            "the client re-sending the cluster; survives SIGKILL via "
+            "the continuous per-request spill (empty disables)",
+        )
+        f_serve_warm_cap = f.float(
+            "serve-warm-cap-mb",
+            256.0,
+            "Daemon: byte budget of the warm session tier in MB — the "
+            "least-recently-spilled records are swept past it "
+            "(<= 0 disables the sweep)",
+        )
         f_serve_speculate = f.bool(
             "serve-speculate",
             True,
-            "Daemon: speculative plan-ahead (not yet ported, ROADMAP.md "
-            "A7b: the daemon logs that it serves without it; answers are "
-            "the same either way)",
+            "Daemon: speculative plan-ahead — after a clean "
+            "session-backed plan, an idle-priority task plans the NEXT "
+            "move on the resident session and memoizes the answer; a "
+            "digest-matching next request is answered with zero "
+            "dispatch, preempted instantly by any real traffic",
         )
         f_serve_speculate_off = f.bool(
             "serve-speculate-off",
             False,
             "Daemon: force speculative plan-ahead OFF (wins over "
             "-serve-speculate)",
+        )
+        f_watch = f.string(
+            "watch",
+            "",
+            "Daemon: watch-driven continuous controller — subscribe to "
+            "this Zookeeper connection string (kazoo watches with a "
+            "-watch-poll fallback), apply change events to a resident "
+            "session, re-plan (speculation makes the steady state a "
+            "memoized read) and stream plans to -watch-emit; no client "
+            "process in the loop (requires -serve)",
+        )
+        f_watch_emit = f.string(
+            "watch-emit",
+            "",
+            "Watch mode: plan sink — a directory (one "
+            "plan-NNNNNN.json + .meta pair per emitted plan) or '-' "
+            "for the daemon's stdout",
+        )
+        f_watch_poll = f.float(
+            "watch-poll",
+            5.0,
+            "Watch mode: poll interval in seconds (the fallback "
+            "cadence when the ZK client offers no watch callbacks; "
+            "watch events wake the loop early)",
         )
         f_serve_client_timeout = f.float(
             "serve-client-timeout",
@@ -644,14 +783,17 @@ def _run_impl(
         f.bool(
             "edge-cache",
             True,
-            "Client: the edge residency cache (not yet ported, ROADMAP.md "
-            "A7b: every forwarded request reads and digests its whole "
-            "input; answers are the same either way)",
+            "Client: keep a per-tenant shadow digest cache beside the "
+            "daemon socket so an unchanged input skips the O(P) "
+            "read+parse+digest entirely and a changed one pays "
+            "O(changed rows) (serve/edge_cache.py)",
         )
         f.bool(
             "no-edge-cache",
             False,
-            "Client: disable the edge residency cache for this invocation",
+            "Client: disable the edge residency cache for this "
+            "invocation (every request re-reads and re-digests the "
+            "full input; wins over -edge-cache)",
         )
         f_serve_stats_json = f.bool(
             "serve-stats-json",
@@ -761,6 +903,28 @@ def _run_impl(
                 usage()
                 return 3
 
+            if f_watch.value != "" and not f_serve.value:
+                log("-watch requires -serve (the daemon is the watcher)")
+                usage()
+                return 3
+
+            if f_watch.value != "" and f_watch_emit.value == "":
+                # a sink-less watcher would plan a move nobody can ever
+                # apply and then wait forever for the cluster to catch
+                # up — refuse loudly instead
+                log(
+                    "-watch requires -watch-emit (a plan nobody "
+                    "receives can never be applied; use "
+                    "-watch-emit=- for stdout)"
+                )
+                usage()
+                return 3
+
+            if f_watch_emit.value != "" and f_watch.value == "":
+                log("-watch-emit requires -watch")
+                usage()
+                return 3
+
             if f_serve_batch_mode.value not in ("continuous", "oneshot"):
                 log(
                     f"unknown -serve-batch-mode "
@@ -819,9 +983,22 @@ def _run_impl(
                 resolve_socket_path,
             )
 
+            idle_timeout = f_serve_idle.value
+            if f_watch.value != "" and "serve-idle-timeout" not in f.seen:
+                # watch mode's steady state has NO client traffic (that
+                # is the point), and watch ticks deliberately never
+                # touch the idle clock — the DEFAULT idle timeout would
+                # shut the watcher down mid-watch. An EXPLICIT
+                # -serve-idle-timeout is honored as given (f.seen — an
+                # explicit value EQUAL to the default included).
+                log(
+                    "watch mode: default -serve-idle-timeout disabled "
+                    "(set it explicitly to bound a watch daemon's life)"
+                )
+                idle_timeout = 0.0
             return Daemon(
                 resolve_socket_path(f_serve_socket.value),
-                idle_timeout=f_serve_idle.value,
+                idle_timeout=idle_timeout,
                 log=log,
                 devices=None if device is None else [device],
                 lanes=f_serve_lanes.value,
@@ -831,9 +1008,20 @@ def _run_impl(
                 tenant_inflight=f_serve_tenant_inflight.value,
                 watchdog_s=f_serve_watchdog.value,
                 faults_spec=f_serve_faults.value,
+                spill_dir=f_serve_spill_dir.value,
+                warm_cap_mb=f_serve_warm_cap.value,
                 speculate=(
                     f_serve_speculate.value
                     and not f_serve_speculate_off.value
+                ),
+                watch_conn=f_watch.value,
+                watch_emit=f_watch_emit.value,
+                watch_poll=f_watch_poll.value,
+                # the watcher plans with THIS invocation's planning
+                # flags, canonicalized exactly like a forwarded request
+                # (daemon/serve flags excluded, -no-daemon pinned)
+                watch_argv=(
+                    _forward_argv(f) if f_watch.value != "" else None
                 ),
                 batching=(
                     f_serve_microbatch.value > 1

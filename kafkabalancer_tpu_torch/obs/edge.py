@@ -22,9 +22,8 @@ module is the client half of the end-to-end story:
 
 Phase glossary (``client.phase.<name>``):
 
-- ``cache_probe``     — the client edge cache's probe (not in this
-  package yet: the phase stays in the glossary so the chain keeps the
-  reference's names);
+- ``cache_probe``     — the edge-residency probe (serve/edge_cache.py):
+  stat + entry-header load + hit classification, before any read;
 - ``input_read``      — reading the input bytes (file or stdin);
 - ``canonicalize``    — building the canonical forwarded argv + session
   identity from parsed flags;

@@ -13,6 +13,7 @@ machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -39,6 +40,7 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_tally = threading.local()
 # nvcc's output (resource usage with -Xptxas -v) and seconds of the last
 # build of each source, by file name
 build_logs: Dict[str, str] = {}
@@ -142,6 +144,25 @@ def load(
 def count_launch(wrapper: Callable[..., object]) -> None:
     """Add one to a kernel wrapper's ``launches`` counter. Under a lock:
     the planning daemon's request threads launch kernels concurrently,
-    and ``wrapper.launches += 1`` is a read-modify-write."""
+    and ``wrapper.launches += 1`` is a read-modify-write. A thread inside
+    :func:`launch_tally` also counts the launch in its tally, by the
+    wrapper's name."""
     with _count_lock:
         wrapper.launches += 1  # type: ignore[attr-defined]
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        name = wrapper.__name__
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Count into ``counts`` (wrapper name -> launches) the kernel
+    launches the calling thread makes while the block runs — the daemon
+    attributes its speculative and watch runs' launches this way."""
+    prev = getattr(_tally, "counts", None)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev

@@ -25,13 +25,22 @@ before it plans. The daemon keeps all of that resident:
   outer loop's steady state ships a digest, not the cluster);
 - ``admission`` — per-tenant fair queueing, caps and deadline shedding;
 - ``faults`` — the fault-injection seam (inert unless ``-serve-faults``);
-- ``devmem`` — per-lane device-memory attribution.
+- ``devmem`` — per-lane device-memory attribution;
+- ``speculate`` — speculative plan-ahead (the idle window after request
+  N computes request N+1's answer; a digest-matching request is a
+  zero-dispatch memo read, preempted by real traffic) and the ``-watch``
+  continuous controller (the daemon subscribes to Zookeeper itself and
+  streams plans to a sink — no client process in the steady state);
+- ``spill`` — the warm session tier (``-serve-session-spill-dir``):
+  checksummed disk records of evicted, expired and flushed sessions,
+  restored by a digest-matching request after a restart or a SIGKILL;
+- ``edge_cache`` — the client's per-tenant shadow digest cache beside
+  the socket (``<socket>.edge/``): an unchanged input skips the read
+  and digest, a changed one pays O(changed rows).
 
-Not in this package yet (ROADMAP.md A7b): speculative plan-ahead, the
-``-watch`` controller, the warm session tier and the client edge cache.
-
-``protocol`` and ``client`` import neither torch nor numpy: a forwarded
-invocation stays as light as an error exit.
+``protocol``, ``client``, ``state``, ``edge_cache``, ``spill`` and
+``speculate`` import neither torch nor numpy: a forwarded invocation
+stays as light as an error exit.
 """
 
 from kafkabalancer_tpu_torch.serve.protocol import (  # noqa: F401

@@ -132,6 +132,12 @@ class AdmissionController:
         self.arrivals = 0
         self.admitted = 0
         self.sheds: Dict[str, int] = {}
+        # arrival hook (no lock held when called): the daemon wires the
+        # speculator's preemption here so EVERY real plan-family
+        # arrival — admitted, queued or shed — aborts in-flight
+        # idle-priority work before it can delay live traffic
+        # (serve/speculate.py)
+        self.on_arrival: Optional[Callable[[], None]] = None
 
     # -- configuration ----------------------------------------------------
     def set_window(self, window: int) -> None:
@@ -183,6 +189,12 @@ class AdmissionController:
         runs the dispatcher and MUST call :meth:`release` after);
         a dict = the structured shed/shutdown response to relay."""
         tenant = getattr(req, "tenant", "") or ""
+        hook = self.on_arrival
+        if hook is not None:
+            try:
+                hook()
+            except Exception:
+                pass  # a preemption hook failure must never shed
         now = self._clock()
         with self._cv:
             self.arrivals += 1

@@ -263,6 +263,7 @@ def forward_plan(
     tenant: str = "",
     client_timeout: float = 0.0,
     edge: Any = None,
+    cached_state: Any = None,
 ) -> Optional[ServedResult]:
     """Forward one invocation to the daemon at ``path``.
 
@@ -292,7 +293,8 @@ def forward_plan(
     this function always sent.
 
     ``tenant`` is a pure telemetry label: a v2 daemon attributes the
-    request's latency/counters to it in its per-tenant scrape block It defaults to
+    request's latency/counters to it in its per-tenant scrape block. It
+    defaults to
     the session's tenant when a session spec is given; it never
     affects planning, and v1 framing never carries it.
 
@@ -315,6 +317,15 @@ def forward_plan(
     recorder's trace context. ``edge=None`` (every pre-existing caller)
     changes nothing — and a v1 exchange stays byte-identical either
     way except for the opt-in ``clock`` hello key.
+
+    ``cached_state`` is an edge-residency state (serve/edge_cache.py
+    ``CachedState``, duck-typing ``ClientState``): when given alongside
+    ``session``, the O(P) parse+digest is skipped entirely — the digest
+    ships from the cache, and canon/rows/text materialize lazily only
+    on the rare resync/register rungs. ``stdin_text`` may then be None
+    even for session requests; any path that genuinely needs the raw
+    input (a v1 daemon, a register) loads it from the cached state and
+    degrades to the in-process fallback if the cache cannot deliver.
     """
 
     def _declined(reason: str) -> None:
@@ -380,8 +391,11 @@ def forward_plan(
         )
         # the session digest is attempt-invariant: compute it once and
         # share across overload retries (a multi-MB parse must not be
-        # re-paid 4 times in the middle of an overload storm)
+        # re-paid 4 times in the middle of an overload storm). An
+        # edge-residency hit pre-seeds it — the parse never happens.
         state_cache: Dict[str, Any] = {}
+        if cached_state is not None and session is not None:
+            state_cache["state"] = cached_state
         attempt = 0
         while True:
             try:
@@ -402,6 +416,14 @@ def forward_plan(
                 }
                 if not progress:
                     req["deadline_ms"] = _remaining_ms(deadline)
+                if stdin_text is None and cached_state is not None:
+                    # a v1 daemon cannot use the digest: materialize
+                    # the raw input from the cache (or degrade)
+                    try:
+                        stdin_text = cached_state.load_text()
+                    except Exception:
+                        _note("edge_cache_error")
+                        return None
                 if stdin_text is not None:
                     req["stdin"] = stdin_text
                 try:
@@ -534,6 +556,7 @@ def _forward_v2(
     with (_phase("digest") if session is not None
           else contextlib.nullcontext()):
         from kafkabalancer_tpu_torch.serve import state as sstate
+        from kafkabalancer_tpu_torch.serve.edge_cache import EdgeCacheError
 
     def _read2() -> "Optional[Tuple[Dict[str, Any], bytes]]":
         with _phase("wait_first_byte"):
@@ -584,7 +607,11 @@ def _forward_v2(
             return None
         return _v2_result(_read2(), _declined, _note)
 
-    nrows = len(state.canon)
+    # an edge-residency state knows its row count without materializing
+    # the canonical rows (the whole point of the stat-hit rung)
+    nrows = getattr(state, "nrows", None)
+    if not isinstance(nrows, int):
+        nrows = len(state.canon)
     with _phase("send"):
         write_frame2(sock, _stamp({
             "v": PROTO_V2, "op": "plan-delta", "tenant": session.tenant,
@@ -597,69 +624,81 @@ def _forward_v2(
         return None
     hdr2, blob2 = resp
     resync = hdr2.get("resync")
-    if resync == "rows":
-        _note("session_digest_mismatch")
-        try:
-            theirs = sstate.unpack_hash_table(blob2)
-        except ValueError:
-            theirs = None
-        # per-row hashes are computed HERE, lazily: only a mismatch
-        # pays them (the steady state digests the canonical bytes
-        # once)
-        mine = sstate.hashes_of(state.canon)
-        changed = (
-            sstate.diff_rows(mine, theirs)
-            if theirs is not None else None
-        )
-        if changed is not None and len(changed) <= max(
-            _MIN_RESYNC_ROWS,
-            int(nrows * _MAX_RESYNC_ROWS_FRACTION),
-        ):
-            rows_blob = sstate.pack_rows(
-                [(i, state.rows[i]) for i in changed]
+    try:
+        if resync == "rows":
+            _note("session_digest_mismatch")
+            try:
+                theirs = sstate.unpack_hash_table(blob2)
+            except ValueError:
+                theirs = None
+            # per-row hashes are computed HERE, lazily: only a mismatch
+            # pays them (the steady state digests the canonical bytes
+            # once) — and an edge-residency state already carries its
+            # row-hash ladder, so even a resync pays O(changed)
+            mine = getattr(state, "row_hashes", None)
+            if mine is None:
+                mine = sstate.hashes_of(state.canon)
+            changed = (
+                sstate.diff_rows(mine, theirs)
+                if theirs is not None else None
             )
+            if changed is not None and len(changed) <= max(
+                _MIN_RESYNC_ROWS,
+                int(nrows * _MAX_RESYNC_ROWS_FRACTION),
+            ):
+                rows_blob = sstate.pack_rows(
+                    [(i, state.rows[i]) for i in changed]
+                )
+                try:
+                    with _phase("send"):
+                        write_frame2(sock, _stamp({
+                            "v": PROTO_V2, "op": "plan-rows",
+                            "tenant": session.tenant,
+                            "digest": state.digest,
+                            "argv": argv,
+                        }), rows_blob)
+                except ValueError as exc:
+                    _declined(
+                        f"request exceeds the protocol frame cap: {exc}"
+                    )
+                    _note("frame_cap")
+                    return None
+                resp = _read2()
+                if resp is None:
+                    _note("transport_error")
+                    return None
+                hdr2, blob2 = resp
+                if not hdr2.get("resync"):
+                    return _v2_result((hdr2, blob2), _declined, _note)
+            resync = "full"
+        if resync:
+            # structural drift (or the daemon could not use the rows):
+            # re-register the full state — the blob is the raw text, so
+            # even this worst case skips the JSON escape pass
+            _note("session_resync_full")
+            reg_text = session.text
+            if reg_text == "" and hasattr(state, "load_text"):
+                reg_text = state.load_text()
             try:
                 with _phase("send"):
                     write_frame2(sock, _stamp({
-                        "v": PROTO_V2, "op": "plan-rows",
+                        "v": PROTO_V2, "op": "register",
                         "tenant": session.tenant,
-                        "digest": state.digest,
-                        "argv": argv,
-                    }), rows_blob)
+                        "argv": argv, "has_stdin": True,
+                    }), reg_text.encode("utf-8"))
             except ValueError as exc:
                 _declined(
                     f"request exceeds the protocol frame cap: {exc}"
                 )
                 _note("frame_cap")
                 return None
-            resp = _read2()
-            if resp is None:
-                _note("transport_error")
-                return None
-            hdr2, blob2 = resp
-            if not hdr2.get("resync"):
-                return _v2_result((hdr2, blob2), _declined, _note)
-        resync = "full"
-    if resync:
-        # structural drift (or the daemon could not use the rows):
-        # re-register the full state — the blob is the raw text, so
-        # even this worst case skips the JSON escape pass
-        _note("session_resync_full")
-        reg_text = session.text
-        try:
-            with _phase("send"):
-                write_frame2(sock, _stamp({
-                    "v": PROTO_V2, "op": "register",
-                    "tenant": session.tenant,
-                    "argv": argv, "has_stdin": True,
-                }), reg_text.encode("utf-8"))
-        except ValueError as exc:
-            _declined(
-                f"request exceeds the protocol frame cap: {exc}"
-            )
-            _note("frame_cap")
-            return None
-        return _v2_result(_read2(), _declined, _note)
+            return _v2_result(_read2(), _declined, _note)
+    except EdgeCacheError:
+        # the cached body could not be materialized for a resync —
+        # degrade to the in-process fallback (content is then re-read
+        # from the real source; never a wrong plan, only a slower one)
+        _note("edge_cache_error")
+        return None
     return _v2_result((hdr2, blob2), _declined, _note)
 
 
@@ -709,11 +748,24 @@ def fetch_trace(
     return _scrape(path, "dump-trace", timeout)
 
 
+def fetch_watch(
+    path: str, timeout: float = 10.0
+) -> Optional[Dict[str, Any]]:
+    """The watch-lag scrape (the ``watch`` protocol op): a response
+    carrying the daemon's ``watch`` block (ticks/reads/lag/emitted
+    plans) and its ``speculation`` block, or None when no live,
+    version-compatible daemon answers. Much cheaper than ``stats`` — a
+    driver polls it between fake-ZK mutations."""
+    return _scrape(path, "watch", timeout)
+
+
 def release_session(
     path: str, tenant: str, timeout: float = 10.0
 ) -> Optional[int]:
-    """Drop a tenant's resident sessions on a live v2 daemon; the number
-    released, or None when no v2 daemon answers."""
+    """Drop a tenant's resident sessions on a live v2 daemon — hot
+    residents AND warm spill records (a released tenant must not be
+    silently restorable from disk); the total number released across
+    both tiers, or None when no v2 daemon answers."""
     sock = _connect(path, CONNECT_TIMEOUT_S)
     if sock is None:
         return None

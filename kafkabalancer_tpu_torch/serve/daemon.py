@@ -26,6 +26,21 @@ Structure:
   into one dispatch window. The probe runs only under contention;
 - resident cluster sessions (serve/sessions.py, protocol v2): the outer
   loop's steady-state request ships a digest, not the cluster;
+- speculative plan-ahead and the ``-watch`` controller
+  (serve/speculate.py): after a clean session request an idle-priority
+  INTERNAL request plans the next move on the resident session and
+  memoizes the answer; a digest-matching next request is answered from
+  the memo with no dispatch (:meth:`Daemon._answer_from_memo`). Internal
+  requests run through the dispatcher like any other (on a lane request
+  thread, the lane's device and default stream), are preempted by real
+  traffic at the next chunk round or applied move, and never touch the
+  idle clock, ``serve.requests``, ``serve.request_s`` or the flight
+  request log;
+- the warm session tier (serve/spill.py, ``-serve-session-spill-dir``):
+  every clean real session request re-spills its session (the
+  continuous spill), evicted/expired sessions demote to disk, and a
+  ``plan-delta`` for an absent session restores its record through
+  ``sessions.session_from_rows`` — a bad record is a counted cold miss;
 - an idle-timeout shutdown, a pidfile next to the socket, and stale
   socket handling (a dead daemon's socket file is unlinked at startup;
   a live one refuses the second daemon).
@@ -36,7 +51,9 @@ device exits 3 exactly as in process — the daemon never plans on the
 CPU unless it was given CPU devices (``devices=["cpu"]``, as the tests
 do). The warm thread builds and loads both kernels; a kernel that fails
 to build or load is logged, and each request that needs it then fails
-on its own (exit 3), never falling back to the plain version.
+on its own (exit 3), never falling back to the plain version. A failed
+speculative run is a counted abort; the real request then plans live on
+the card.
 
 Observability: daemon-lifetime counters ride into every request's
 registry as gauges (``served: true``, ``serve.requests``,
@@ -47,10 +64,6 @@ hook (obs/trace.py) into streaming per-phase histograms (obs/hist.py —
 (obs/flight.py), scraped live through the ``stats`` / ``dump-trace``
 protocol ops without touching the plan dispatcher, and auto-dumped on
 daemon-side crashes or requests over ``-serve-slow-ms``.
-
-Not in this package yet (ROADMAP.md A7b): speculative plan-ahead, the
-``-watch`` controller and the warm session tier; the scrape document
-keeps their blocks, switched off.
 """
 
 from __future__ import annotations
@@ -82,6 +95,8 @@ from kafkabalancer_tpu_torch.obs.flight import PHASE_OF_SPAN, FlightRecorder
 from kafkabalancer_tpu_torch.obs.hist import OTHER_LABEL
 from kafkabalancer_tpu_torch.obs.trace import Span
 from kafkabalancer_tpu_torch.serve import faults
+from kafkabalancer_tpu_torch.serve import speculate as spec_mod
+from kafkabalancer_tpu_torch.serve import spill as spill_mod
 from kafkabalancer_tpu_torch.serve.admission import AdmissionController
 from kafkabalancer_tpu_torch.serve.devmem import device_memory_stats
 from kafkabalancer_tpu_torch.serve.protocol import (
@@ -116,68 +131,8 @@ _TENANT_HIST_FAMILIES = (
 _TENANT_COUNTER_FAMILIES = (
     "serve.requests", "serve.crashed_requests", "serve.delta_hits",
     "serve.resyncs_rows", "serve.resyncs_full", "serve.fallbacks",
-    "serve.sheds",
+    "serve.sheds", "serve.restores", "serve.spec.hits",
 )
-
-# the scrape blocks of the features this package does not have yet
-# (ROADMAP.md A7b), with the reference's key sets, switched off
-_PAGING_OFF: Dict[str, Any] = {
-    "enabled": False, "dir": "", "cap_bytes": 0,
-    "spills": 0, "adopted": 0, "restores": 0, "restore_hits": 0,
-    "corrupt_drops": 0, "evictions": 0, "write_failures": 0,
-    "warm_entries": 0, "warm_bytes": 0,
-}
-_SPECULATION_OFF: Dict[str, Any] = {
-    "enabled": False, "attempts": 0, "hits": 0, "misses": 0,
-    "poisoned": 0, "aborted": 0, "deferred": 0, "wasted_dispatches": 0,
-    "memos": 0, "inflight": False,
-}
-_WATCH_OFF: Dict[str, Any] = {
-    "enabled": False, "conn": None, "emit": None, "ticks": 0, "reads": 0,
-    "errors": 0, "events": 0, "resyncs": 0, "plans_emitted": 0,
-    "noop_plans": 0, "spec_hits": 0, "last_read_age_s": None,
-    "last_plan_s": None, "last_event_lag_s": None, "state_digest": None,
-}
-
-
-def _pid_alive(pid: int) -> bool:
-    """Is ``pid`` a live process? (signal 0 probe; a process we may not
-    signal still counts as alive). A ZOMBIE is dead for our purposes — a
-    SIGKILL'd daemon whose parent never reaped it still answers the
-    signal probe but cannot own a socket, and must not block a
-    restart."""
-    if pid <= 0:
-        return False
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return False
-    except PermissionError:
-        return True
-    except OSError:
-        return False
-    try:
-        with open(f"/proc/{pid}/stat") as f:
-            # field 3, after the parenthesized comm (which may itself
-            # contain spaces/parens): parse from the LAST ')'
-            state = f.read().rsplit(")", 1)[1].split()[0]
-        return state != "Z"
-    except (OSError, IndexError):
-        return True  # no procfs: the signal probe's verdict stands
-
-
-def _pid_looks_like_daemon(pid: int) -> bool:
-    """Does ``pid``'s command line look like a daemon? Guards the
-    takeover refusal against PID RECYCLING: a SIGKILL'd daemon's recorded
-    pid can be reborn as an unrelated process. An unreadable cmdline
-    says True — refusing when unsure beats hijacking a live daemon."""
-    try:
-        with open(f"/proc/{pid}/cmdline", "rb") as f:
-            cmd = f.read()
-    except OSError:
-        return True
-    return b"kafkabalancer" in cmd or b"-serve" in cmd
-
 
 def _deadline_of(hdr: Dict[str, Any]) -> Optional[float]:
     """A request header's ``deadline_ms`` budget as an absolute
@@ -216,7 +171,8 @@ class PlanRequest:
 
     __slots__ = (
         "argv", "stdin", "done", "response", "bucket", "bucketed",
-        "t_submit", "session_ctx", "tenant", "deadline", "started", "trace",
+        "t_submit", "session_ctx", "tenant", "deadline", "started",
+        "internal", "trace",
     )
 
     def __init__(
@@ -250,6 +206,13 @@ class PlanRequest:
         # identity admitted == requests + abandoned cannot double-count
         # a wedged-mid-handling request
         self.started = False
+        # daemon-internal work (serve/speculate.py): "spec" for a
+        # speculative plan-ahead, "watch" for a watch-mode re-plan,
+        # None for real client traffic. Internal requests never touch
+        # the idle clock, serve.requests/request_s, admission feedback,
+        # the flight request log or the `abandoned` identity — they
+        # carry their own serve.spec.*/serve.watch.* telemetry
+        self.internal: Optional[str] = None
         # the client's trace context from the v2 header ("trace" key:
         # id / parent / pre-send client phases / edge_pre_ms / rtt_ns,
         # serve/protocol.py § End-to-end tracing); None on v1 frames
@@ -333,7 +296,11 @@ class Coalescer:
                     "error": "dispatcher died; request abandoned",
                 }
                 r.done.set()
-                flushed += 1
+                # internal (speculative/watch) requests never passed
+                # admission, so counting them here would break the
+                # admitted == requests + abandoned identity
+                if getattr(r, "internal", None) is None:
+                    flushed += 1
         with self._cv:
             self.abandoned += flushed
         t = threading.Thread(
@@ -462,7 +429,13 @@ class Daemon:
         tenant_inflight: int = 64,
         watchdog_s: float = 120.0,
         faults_spec: str = "",
+        spill_dir: str = "",
+        warm_cap_mb: float = 256.0,
         speculate: bool = False,
+        watch_conn: str = "",
+        watch_emit: str = "",
+        watch_poll: float = 5.0,
+        watch_argv: Optional[List[str]] = None,
         batching: bool = False,
     ) -> None:
         self.socket_path = socket_path
@@ -484,9 +457,6 @@ class Daemon:
         # lanes: 1 = the single-lane Coalescer; 0/negative = one lane per
         # device; N>1 = min(N, devices)
         self.lanes = lanes
-        # speculative plan-ahead was asked for: not in this package yet
-        # (ROADMAP.md A7b) — logged once at start, answers unchanged
-        self.speculate = speculate
         # cross-request batching was asked for (-serve-microbatch > 1 or
         # -serve-admission-hold): this package runs every request solo
         # (serve/lanes.py) — logged once at start, answers unchanged
@@ -519,6 +489,35 @@ class Daemon:
         # resident cluster sessions (protocol v2; serve/sessions.py):
         # LRU-capped per-tenant parsed/settled state + primed row cache
         self.sessions = SessionStore(cap=session_cap, idle_s=session_idle_s)
+        # the warm session tier (serve/spill.py): evicted/expired/
+        # flushed sessions spill to versioned checksummed records under
+        # spill_dir (empty = tier disabled); the store itself is opened
+        # in serve_forever — opening claims the directory, and a
+        # CONSTRUCTED-but-never-served daemon must not leave pidfiles
+        # behind
+        self.spill_dir = spill_dir
+        self.warm_cap_mb = warm_cap_mb
+        self.spill: Optional[Any] = None
+        # speculative plan-ahead (serve/speculate.py): the idle-priority
+        # worker that plans request N+1 on the resident session and
+        # memoizes the answer; the store retires memos through it so
+        # the speculation block's conservation identity stays exact.
+        # Always constructed (the scrape block exists with the feature
+        # off); its worker thread starts in serve_forever.
+        self.speculator = spec_mod.Speculator(self, enabled=speculate)
+        self.sessions.spec = self.speculator
+        # watch mode (serve/speculate.py ZkWatcher): the daemon itself
+        # subscribes to Zookeeper and streams plans to watch_emit — no
+        # client process in the steady state
+        self.watch_conn = watch_conn
+        self.watch_emit = watch_emit
+        self.watch_poll = watch_poll
+        self.watch_argv = list(watch_argv) if watch_argv else None
+        self.watcher: Optional[spec_mod.ZkWatcher] = None
+        # kernel launches made by internal runs, by kind ("spec" /
+        # "watch") and kernel wrapper name (ops/nvcc.py launch_tally):
+        # which share of a kernel's launches was idle-priority work
+        self.internal_launches: Dict[str, Dict[str, int]] = {}
         # per-tenant telemetry label bound: top-K tenants by recent
         # activity keep individual hists/counters, the rest roll into
         # "other" (obs/hist.py HistFamily)
@@ -547,6 +546,10 @@ class Daemon:
             tenant_inflight=tenant_inflight,
             parallel=1,
         )
+        # every real plan-family ARRIVAL (admitted or shed) preempts
+        # any in-flight speculative dispatch (serve/speculate.py):
+        # idle plan-ahead work must never cost live traffic its p95
+        self._admission.on_arrival = self.speculator.note_real_traffic
 
     # -- warmup ----------------------------------------------------------
     # thread-role: warm
@@ -631,7 +634,12 @@ class Daemon:
             # lane (one dict get + a float store per span)
             lane.last_beat = time.monotonic()
         phase = PHASE_OF_SPAN.get(sp.name)
-        if phase is not None:
+        if phase is not None and not sp.thread_name.startswith(
+            "serve-int-"
+        ):
+            # internal (speculative/watch) runs keep the lane heartbeat
+            # above but stay out of the serve.phase.* histograms — the
+            # per-phase breakdowns must describe real traffic only
             obs.metrics.hist_observe(
                 f"serve.phase.{phase}", (t1 - sp.t0_ns) / 1e9
             )
@@ -717,6 +725,19 @@ class Daemon:
     ) -> None:
         from kafkabalancer_tpu_torch import cli
 
+        internal = req.internal
+        if internal == "spec" and (
+            self.speculator.preempted() or self._admission.busy()
+        ):
+            # abort-before-start: real traffic arrived while the
+            # speculative request sat queued — defer, never delay a
+            # live request behind idle work (the speculator counts the
+            # non-ok response as aborted)
+            req.response = {
+                "v": PROTO_VERSION, "ok": False,
+                "error": "speculation deferred (real traffic waiting)",
+            }
+            return
         # handling BEGINS here (before any injected wedge): a request
         # the watchdog later abandons mid-handling still lands in the
         # requests counter when it resumes, never in `abandoned`
@@ -727,7 +748,7 @@ class Daemon:
         faults.fire("dispatch_delay")
         t_start = time.perf_counter()
         tenant_label = req.tenant or OTHER_LABEL
-        if req.t_submit is not None:
+        if req.t_submit is not None and internal is None:
             # queue wait: accept-thread submit to dispatcher pickup —
             # global hist AND the tenant family (who waits behind whom)
             queue_s = t_start - req.t_submit
@@ -736,9 +757,13 @@ class Daemon:
                 "serve.phase.queue", tenant_label, queue_s
             )
         with self._lock:
-            self._requests += 1
-            if coalesced:
-                self._coalesced += 1
+            if internal is None:
+                # internal (speculative/watch) work is NOT a request:
+                # serve.requests stays the real-traffic truth and the
+                # admitted == requests + abandoned identity holds
+                self._requests += 1
+                if coalesced:
+                    self._coalesced += 1
             n = self._requests
             n_coal = self._coalesced
             self._seq += 1
@@ -749,7 +774,7 @@ class Daemon:
             "serve.coalesced": float(n_coal),
         }
         trace = req.trace if isinstance(req.trace, dict) else None
-        if trace is not None:
+        if trace is not None and internal is None:
             # the client's trace context rides into the request's
             # gauges: the trace id plus the client's pre-send edge
             # phases as client.phase.* (obs/edge.py glossary); the
@@ -779,6 +804,12 @@ class Daemon:
                 obs.metrics.tenant_hist_observe(
                     "serve.edge_ms", tenant_label, total_ms
                 )
+            ech = trace.get("edge_cache_hit")
+            if isinstance(ech, bool):
+                # the edge-residency attribution (serve/edge_cache.py):
+                # True when this request's digest came from the shadow
+                # cache without a client-side read+parse
+                attrs["client.edge_cache_hit"] = ech
         ctx = req.session_ctx
         if req.tenant:
             attrs["serve.tenant"] = req.tenant
@@ -787,7 +818,15 @@ class Daemon:
             attrs["serve.sessions"] = float(ss["count"])
             attrs["serve.session_bytes"] = float(ss["bytes"])
             attrs["serve.delta_hits"] = float(ss["delta_hits"])
-            if ctx.kind in ("delta", "rebuild"):
+            if getattr(ctx, "restored", False) and ctx.kind in (
+                "delta", "rebuild"
+            ):
+                # answered from a warm spill record with NO resync — a
+                # restored session whose digest drifted takes the rows
+                # path and is a restore but not a hit, matching
+                # paging.restore_hits exactly
+                attrs["serve.restore_hit"] = True
+            elif ctx.kind in ("delta", "rebuild"):
                 attrs["serve.delta_hit"] = True
         sched = self._coalescer
         if lane is not None and hasattr(sched, "stats"):
@@ -829,12 +868,27 @@ class Daemon:
         out, err = io.StringIO(), io.StringIO()
         rc_box: List[int] = []
 
+        tally: Dict[str, int] = {}
+
         def body() -> None:  # thread-role: request
             # chaos seam: a scheduled transfer_fail raises before the
             # device work — the request crashes server-side and is
             # answered with a structured error, never a wrong plan
             faults.fire("transfer_fail")
             with contextlib.ExitStack() as st:
+                if internal is not None:
+                    from kafkabalancer_tpu_torch.ops import nvcc
+
+                    # which kernel launches this internal run made
+                    st.enter_context(nvcc.launch_tally(tally))
+                if internal == "spec":
+                    # the cooperative preemption hook: checked per
+                    # solver chunk round and per applied move; a raise
+                    # unwinds the whole run (caught below)
+                    spec_mod.install_abort_check(
+                        self.speculator.maybe_abort
+                    )
+                    st.callback(spec_mod.install_abort_check, None)
                 if lane is not None:
                     st.enter_context(lane.context())
                 if ctx is not None:
@@ -843,21 +897,37 @@ class Daemon:
                     # lane's, and the mutation tap mirrors every
                     # applied move into the session's raw shadow
                     st.enter_context(ctx.activate())
-                rc_box.append(
-                    cli.run(
-                        i, out, err, ["kafkabalancer"] + req.argv,
-                        device=device,
-                        shard_devices=shard_devices,
-                        attrs=attrs,
-                        refresh_attrs=refresh if lane is not None else None,
-                        session=ctx,
+                try:
+                    rc_box.append(
+                        cli.run(
+                            i, out, err, ["kafkabalancer"] + req.argv,
+                            device=device,
+                            shard_devices=shard_devices,
+                            attrs=attrs,
+                            refresh_attrs=(
+                                refresh if lane is not None else None
+                            ),
+                            session=ctx,
+                        )
                     )
-                )
+                except spec_mod.SpeculationAborted:
+                    # a preempted speculative run: no rc, no traceback
+                    # noise — the empty rc_box reads as a non-ok
+                    # response and the speculator counts it aborted.
+                    # Kernels it already queued run on the lane's
+                    # stream ahead of the next request's, which reads
+                    # none of their outputs.
+                    pass
 
         # a named thread per request: the request's telemetry spans get
-        # their own track ("serve-req-N"), and the flight recorder
-        # attributes phase spans to it by name
-        thread_name = f"serve-req-{seq}"
+        # their own track ("serve-req-N"; internal speculative/watch
+        # work runs as "serve-int-N" so the phase histograms can skip
+        # it), and the flight recorder attributes phase spans to it by
+        # name
+        thread_name = (
+            f"serve-int-{seq}" if internal is not None
+            else f"serve-req-{seq}"
+        )
         t = threading.Thread(target=body, name=thread_name)
         if lane is not None:
             self._thread_lanes[thread_name] = lane
@@ -870,13 +940,18 @@ class Daemon:
                 # masquerade as one of the CLI's documented exit codes —
                 # an ok:false response makes the client fall back and
                 # plan in-process
-                self._log(
-                    f"serve: request {seq} crashed (see traceback above)"
-                )
+                if internal is None:
+                    self._log(
+                        f"serve: request {seq} crashed "
+                        "(see traceback above)"
+                    )
                 req.response = {
                     "v": PROTO_VERSION,
                     "ok": False,
-                    "error": "internal error: planner thread died",
+                    "error": (
+                        "speculation aborted" if internal == "spec"
+                        else "internal error: planner thread died"
+                    ),
                 }
             else:
                 req.response = {
@@ -886,21 +961,39 @@ class Daemon:
                     "stdout": out.getvalue(),
                     "stderr": err.getvalue(),
                 }
-            self._touch()
+            if internal is None:
+                # internal work must not reset the idle clock: a daemon
+                # that is only speculating (or watch-ticking) still
+                # honors -serve-idle-timeout
+                self._touch()
         finally:
             # the flight-recorder request summary + the reconciliation
             # histogram: EVERY _handle_plan call (crash paths included)
             # lands exactly one serve.request_s observation, so a
             # post-traffic scrape's hist count equals serve.requests
             wall = time.perf_counter() - t_start
-            obs.metrics.hist_observe("serve.request_s", wall)
-            # feed the admission layer's retry-after estimate
-            self._admission.note_service(wall)
-            # the tenant dimension: same invariant per label
-            obs.metrics.tenant_hist_observe(
-                "serve.request_s", tenant_label, wall
-            )
-            obs.metrics.tenant_count("serve.requests", tenant_label)
+            if internal is None:
+                obs.metrics.hist_observe("serve.request_s", wall)
+                # feed the admission layer's retry-after estimate
+                self._admission.note_service(wall)
+                # the tenant dimension: same invariant per label
+                obs.metrics.tenant_hist_observe(
+                    "serve.request_s", tenant_label, wall
+                )
+                obs.metrics.tenant_count("serve.requests", tenant_label)
+            else:
+                # speculative/watch work carries its OWN wall hist —
+                # never serve.request_s (its count must equal
+                # serve.requests exactly) and never the retry-after
+                # EWMA (idle work must not skew overload estimates)
+                obs.metrics.hist_observe(f"serve.{internal}.plan_s", wall)
+                if tally:
+                    with self._lock:
+                        kind = self.internal_launches.setdefault(
+                            internal, {}
+                        )
+                        for name, k in tally.items():
+                            kind[name] = kind.get(name, 0) + k
             phases = self.flight.pop_request_phases(thread_name)
             self._thread_lanes.pop(thread_name, None)
             rc_val = rc_box[0] if rc_box else None
@@ -941,26 +1034,45 @@ class Daemon:
                         )
                     except Exception:
                         pass  # bucket stays unmemoized; probe-only loss
-            self.flight.record_request({
-                "req": seq,
-                "t": round(time.time(), 3),
-                "lane": lane.index if lane is not None else 0,
-                "tenant": req.tenant or None,
-                "bucket": list(req.bucket) if req.bucket else None,
-                "rc": rc_val,
-                "coalesced": coalesced,
-                "wall_s": round(wall, 6),
-                "phases": {k: round(v, 6) for k, v in sorted(
-                    phases.items()
-                )},
-                "trace": (
-                    str(trace["id"])
-                    if trace is not None and trace.get("id")
-                    else None
-                ),
-            })
+                if self.spill is not None and internal is None:
+                    # the CONTINUOUS spill: every clean session request
+                    # refreshes the warm record (skipped when the
+                    # digest has not moved), so a SIGKILL at any later
+                    # instant loses at most the in-flight request —
+                    # restart recovery works from exactly this write.
+                    # One O(P) struct pack + an atomic tmp+rename per
+                    # completed request; a failed write only costs
+                    # durability, never the answer (write_failures).
+                    # INTERNAL (speculative/watch) runs never spill:
+                    # their post-run state is ahead of what the client
+                    # has seen — the last real request's record is the
+                    # one a restore must match (serve/sessions.py)
+                    self.spill.spill(
+                        (ctx.session.tenant, ctx.session.sig),
+                        ctx.session,
+                    )
+            if internal is None:
+                self.flight.record_request({
+                    "req": seq,
+                    "t": round(time.time(), 3),
+                    "lane": lane.index if lane is not None else 0,
+                    "tenant": req.tenant or None,
+                    "bucket": list(req.bucket) if req.bucket else None,
+                    "rc": rc_val,
+                    "coalesced": coalesced,
+                    "wall_s": round(wall, 6),
+                    "phases": {k: round(v, 6) for k, v in sorted(
+                        phases.items()
+                    )},
+                    "trace": (
+                        str(trace["id"])
+                        if trace is not None and trace.get("id")
+                        else None
+                    ),
+                })
             if (
                 trace is not None
+                and internal is None
                 and isinstance(req.response, dict)
                 and req.response.get("ok")
             ):
@@ -975,7 +1087,7 @@ class Daemon:
                         thread_name, cap=FOOTER_SPAN_CAP
                     ),
                 }
-            if rc_val is None:
+            if rc_val is None and internal is None:
                 with self._lock:
                     self._crashed += 1
                 obs.metrics.count("serve.crashed_requests")
@@ -987,7 +1099,11 @@ class Daemon:
                     directory=self.flight_dir or None,
                     log=self._log,
                 )
-            elif self.slow_ms > 0 and wall * 1000.0 >= self.slow_ms:
+            elif (
+                internal is None
+                and self.slow_ms > 0
+                and wall * 1000.0 >= self.slow_ms
+            ):
                 with self._lock:
                     self._slow += 1
                 obs.metrics.count("serve.slow_requests")
@@ -1132,12 +1248,22 @@ class Daemon:
             # resident cluster sessions (serve/sessions.py): count,
             # resident bytes, delta hits/resyncs — serve-stats/3
             "sessions": self.sessions.stats(),
-            # the warm session tier, speculation and -watch are not in
-            # this package yet (ROADMAP.md A7b): their blocks keep the
-            # schema's key sets, switched off
-            "paging": dict(_PAGING_OFF),
-            "speculation": dict(_SPECULATION_OFF),
-            "watch": dict(_WATCH_OFF),
+            # the warm session tier (serve/spill.py): spill/restore/
+            # corrupt-drop counters under the conservation identity
+            # spills + adopted == restores + corrupt_drops + evictions
+            # + warm_entries, plus the live warm footprint; key set
+            # identical with the tier disabled
+            "paging": (
+                self.spill.stats() if self.spill is not None
+                else spill_mod.SpillStore.disabled_stats()
+            ),
+            # speculative plan-ahead (serve/speculate.py) under the
+            # exact identity attempts == hits + misses + poisoned +
+            # memos at every scrape instant
+            "speculation": self.speculator.stats(),
+            # the watch-driven continuous controller: ticks/reads/lag +
+            # emitted-plan attribution; same key set with the mode off
+            "watch": self._watch_stats(),
             # daemon-observed fallback/resync reasons, by name
             "fallbacks": fallbacks,
             # overload protection (serve-stats/5): fair-queue occupancy,
@@ -1185,6 +1311,11 @@ class Daemon:
                 ),
             }
         return out
+
+    def _watch_stats(self) -> Dict[str, Any]:
+        if self.watcher is not None:
+            return self.watcher.stats()
+        return spec_mod.ZkWatcher.disabled_stats(self.watch_conn)
 
     def _hello(self) -> Dict[str, Any]:
         return {
@@ -1238,16 +1369,21 @@ class Daemon:
             return int(fam["labels"].get(label, 0))
 
         by_tenant = self.sessions.stats_by_tenant()
-        # the rollup's session footprint: everything resident that is
-        # NOT attributed to a live top-K label (demoted tenants keep
-        # their sessions; the table must still reconcile with the
-        # global "sessions" block)
+        # the rollup's session footprint: everything resident (hot OR
+        # warm) that is NOT attributed to a live top-K label (demoted
+        # tenants keep their sessions; the table must still reconcile
+        # with the global "sessions"/"paging" blocks)
         top_labels = set(req_fam["labels"])
-        rolled = {"sessions": 0, "bytes": 0}
+        rolled = {
+            "sessions": 0, "bytes": 0,
+            "warm_sessions": 0, "warm_bytes": 0,
+        }
         for t_label, s in by_tenant.items():
             if t_label not in top_labels:
                 rolled["sessions"] += s["sessions"]
                 rolled["bytes"] += s["bytes"]
+                rolled["warm_sessions"] += s.get("warm_sessions", 0)
+                rolled["warm_bytes"] += s.get("warm_bytes", 0)
 
         def entry(label: str, hist: Optional[Dict[str, Any]]) -> Dict[str, Any]:
             sess = rolled if label == OTHER_LABEL else by_tenant.get(
@@ -1271,25 +1407,26 @@ class Daemon:
                 # — None until a tracing client reports (obs/edge.py)
                 "edge_ms": edge,
                 "delta_hits": cval("serve.delta_hits", label),
-                # speculation and the warm tier are not in this package
-                # yet (ROADMAP.md A7b): their columns stay 0
-                "spec_hits": 0,
+                "spec_hits": cval("serve.spec.hits", label),
                 "resyncs_rows": cval("serve.resyncs_rows", label),
                 "resyncs_full": cval("serve.resyncs_full", label),
                 "fallbacks": cval("serve.fallbacks", label),
                 "sheds": cval("serve.sheds", label),
-                "restores": 0,
+                "restores": cval("serve.restores", label),
                 "sessions": int(sess.get("sessions", 0)),
                 "session_bytes": int(sess.get("bytes", 0)),
-                "warm_sessions": 0,
-                "warm_bytes": 0,
+                # the warm tier column: a fully demoted tenant keeps
+                # its byte attribution here instead of vanishing
+                "warm_sessions": int(sess.get("warm_sessions", 0)),
+                "warm_bytes": int(sess.get("warm_bytes", 0)),
             }
 
         other = entry(OTHER_LABEL, req_fam.get("other"))
         has_other = req_fam.get("other") is not None or any(
             other[k] for k in (
-                "requests", "crashed", "delta_hits", "resyncs_rows",
-                "resyncs_full", "fallbacks", "sheds",
+                "requests", "crashed", "delta_hits", "spec_hits",
+                "resyncs_rows", "resyncs_full", "fallbacks", "sheds",
+                "restores", "warm_sessions",
             )
         )
         return {
@@ -1300,6 +1437,15 @@ class Daemon:
                 for label, hist in req_fam["labels"].items()
             },
             "other": other if has_other else None,
+        }
+
+    def _watch_doc(self) -> Dict[str, Any]:
+        """The ``watch`` op's answer: the watch block and the
+        speculation block (the watcher's steady state is memo reads)."""
+        return {
+            "v": PROTO_VERSION, "ok": True, "op": "watch",
+            "watch": self._watch_stats(),
+            "speculation": self.speculator.stats(),
         }
 
     def _stats_doc(self) -> Dict[str, Any]:
@@ -1335,6 +1481,8 @@ class Daemon:
             return None
         # t_submit anchors the queue-wait histogram at ARRIVAL: the
         # fair-queue wait is part of what a tenant waits behind
+        # (admission.acquire preempts any in-flight speculation via
+        # its arrival hook — idle work never costs live traffic p95)
         req.t_submit = time.perf_counter()
         shed = self._admission.acquire(req)
         if shed is not None:
@@ -1398,6 +1546,153 @@ class Daemon:
             hdr["trace"] = resp["trace"]
         return hdr, str(resp.get("stdout", "")).encode("utf-8")
 
+    def _checkout_or_restore(
+        self, key: Tuple[str, str], tenant: str
+    ) -> Tuple[Optional[Any], bool, bool]:
+        """Claim the hot session for ``key`` — or, when the hot tier
+        has none and a warm tier is attached, RESTORE the spilled
+        record into a fresh hot session (claimed before it is
+        published, so no concurrent request can half-see it).
+
+        Returns ``(session, busy, restored)``: a corrupt/absent warm
+        record is simply ``(None, False, False)`` — a clean cold miss,
+        the caller answers ``resync: full`` exactly as before the
+        tier existed."""
+        from kafkabalancer_tpu_torch.serve.sessions import session_from_rows
+
+        sess, busy = self.sessions.checkout(key)
+        if sess is not None or busy:
+            return sess, busy, False
+        if self.spill is None:
+            return None, False, False
+        # snapshot the tenant's release generation BEFORE reading the
+        # record: a `release` op racing this restore must win — the
+        # restored session is dropped, never served
+        gen0 = self.sessions.release_gen(tenant)
+        loaded = self.spill.load(key)
+        if loaded is None:
+            return None, False, False
+        hdr, rows = loaded
+        version = hdr.get("version")
+        sess = session_from_rows(
+            tenant, key[1],
+            version if isinstance(version, int) else 1,
+            rows,
+        )
+        sess.lock.acquire()
+        sess.in_use = True
+        if not self.sessions.adopt(key, sess):
+            # a concurrent register won the key during the disk read:
+            # the fresh session holds newer state — drop the restore
+            # and claim the winner instead
+            sess.in_use = False
+            sess.lock.release()
+            hot, busy = self.sessions.checkout(key)
+            return hot, busy, False
+        if self.sessions.release_gen(tenant) != gen0:
+            # the tenant was released while we were restoring: honor
+            # the forget — sweep the just-adopted session back out and
+            # answer a clean cold miss (the record itself is already
+            # consumed and counted); only THIS session is dropped, so
+            # a fresh register that beat us to the key survives
+            self.sessions.discard(key, sess)
+            self.sessions.checkin(sess)
+            return None, False, False
+        obs.metrics.tenant_count("serve.restores", tenant or OTHER_LABEL)
+        return sess, False, True
+
+    def _answer_from_memo(
+        self,
+        key: Tuple[str, str],
+        sess: Any,
+        memo: Any,
+        tenant: str,
+        deadline: Optional[float],
+        argv: List[str],
+        t0: float,
+        trace: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """Answer a digest-and-argv-matching ``plan-delta`` from the
+        speculative memo (serve/speculate.py): ZERO dispatch, ZERO
+        parse — the answer was computed during the idle window after
+        the previous request. The memo hit is a REAL request: it rides
+        admission (so the fairness caps and the conservation identity
+        ``admitted == requests + abandoned`` hold), counts in
+        ``serve.requests``/``serve.request_s``/the flight log like any
+        served request (with its near-zero wall — that IS the
+        speedup), counts a delta hit (it is the delta fast path at its
+        fastest) and carries the ``serve.spec.*`` hit attribution the
+        acceptance gate reads. The caller still holds the session
+        checkout and has already CONSUMED the memo via
+        ``Speculator.take_memo`` (the CAS that makes hit-vs-poison
+        retirement exactly-once)."""
+        req = PlanRequest(argv, None, tenant, deadline=deadline)
+        shed = self._admission.acquire(req)
+        if shed is not None:
+            # the answer was never delivered: put the memo back so the
+            # client's backoff retry (same digest) can still hit
+            self.speculator.untake_memo(sess, memo)
+            return shed
+        try:
+            tenant_label = tenant or OTHER_LABEL
+            obs.metrics.tenant_count("serve.spec.hits", tenant_label)
+            self.sessions.count_delta_hit()
+            obs.metrics.tenant_count("serve.delta_hits", tenant_label)
+            with self._lock:
+                self._requests += 1
+                self._seq += 1
+                seq = self._seq
+            sess.last_used = time.monotonic()
+            if self.spill is not None:
+                # the continuous-spill invariant moves with the hit:
+                # the client now advances to the memo's post-move
+                # state, which is exactly the session's current raw
+                # shadow — persist it so a SIGKILL still restores with
+                # a digest match
+                self.spill.spill(key, sess)
+            wall = time.perf_counter() - t0
+            obs.metrics.hist_observe("serve.spec.hit_s", wall)
+            obs.metrics.hist_observe("serve.request_s", wall)
+            obs.metrics.tenant_hist_observe(
+                "serve.request_s", tenant_label, wall
+            )
+            obs.metrics.tenant_count("serve.requests", tenant_label)
+            self.flight.record_request({
+                "req": seq,
+                "t": round(time.time(), 3),
+                "lane": 0,
+                "tenant": tenant or None,
+                "bucket": list(sess.bucket) if sess.bucket else None,
+                "rc": memo.rc,
+                "coalesced": False,
+                "spec_hit": True,
+                "wall_s": round(wall, 6),
+                "phases": {},
+                "trace": (
+                    str(trace["id"])
+                    if trace is not None and trace.get("id")
+                    else None
+                ),
+            })
+            self._touch()
+            resp: Dict[str, Any] = {
+                "v": PROTO_VERSION, "ok": True, "rc": memo.rc,
+                "stdout": memo.stdout, "stderr": memo.stderr,
+            }
+            if trace is not None:
+                # the memo hit ran no request thread, so the footer's
+                # span subtree is empty — spec_hit marks WHY for the
+                # merged timeline (the answer predates the question)
+                resp["trace"] = {
+                    "id": trace.get("id"),
+                    "wall_s": round(wall, 6),
+                    "spans": [],
+                    "spec_hit": True,
+                }
+            return resp
+        finally:
+            self._admission.release(req)
+
     def _session_op(
         self, op: str, hdr: Dict[str, Any], blob: bytes, argv: List[str]
     ) -> Tuple[Dict[str, Any], bytes]:
@@ -1445,6 +1740,7 @@ class Daemon:
                     req = PlanRequest(argv, text, tenant, deadline=deadline)
                     req.trace = trace
                     req.session_ctx = ctx
+                    sess.last_argv = list(argv)
                     resp = self._dispatch_plan(req)
                 finally:
                     sess.in_use = False
@@ -1455,40 +1751,99 @@ class Daemon:
                 and ctx.snapshotted
             ):
                 self.sessions.put(key, sess)
+                # the freshly registered session's next move can start
+                # computing right away (idle-priority)
+                self.speculator.enqueue(key)
             return self._v2_plan_resp(resp)
 
         if op == "plan-delta":
             digest = str(hdr.get("digest", ""))
-            sess, busy = self.sessions.checkout(key)
+            spec = self.speculator
+            t_hit0 = time.perf_counter()
+            sess, busy, restored = self._checkout_or_restore(key, tenant)
+            if sess is None and busy and spec.wait_for_key(
+                key, digest, argv,
+                (deadline - time.monotonic()) if deadline else 120.0,
+            ):
+                # speculation held the session: a MATCHING in-flight
+                # run just computed this very answer (the memo path
+                # below consumes it); a mismatching one was aborted —
+                # either way, re-claim and proceed
+                sess, busy, restored = self._checkout_or_restore(
+                    key, tenant
+                )
             if sess is None:
                 self._count_fallback(
                     "session_busy" if busy else "session_absent", tenant
                 )
                 return _resync_full()
+            enqueue_spec = False
             try:
+                memo = sess.spec_memo
+                if memo is not None:
+                    if (
+                        memo.key_digest == digest
+                        and memo.argv == argv
+                        and spec.take_memo(sess, memo)
+                    ):
+                        # the tentpole fast path: the answer was
+                        # planned before it was asked for (take_memo
+                        # is the CAS — a concurrently poisoned memo
+                        # falls through to the live ladder below)
+                        resp = self._answer_from_memo(
+                            key, sess, memo, tenant, deadline, argv,
+                            t_hit0, trace=trace,
+                        )
+                        enqueue_spec = bool(resp.get("ok"))
+                        if enqueue_spec and spec.rearm_memo(sess, memo):
+                            # fixed point: the plan moved nothing, so
+                            # the session did not advance — the same
+                            # memo keeps answering the same digest
+                            # with no re-dispatch
+                            enqueue_spec = False
+                        return self._v2_plan_resp(resp)
+                    # the memo cannot serve this request (drifted
+                    # digest or changed flags): drop it and fall back
+                    # to the live ladder — parity over latency, always
+                    spec.retire_miss(sess, memo)
                 if sess.digest is not None and digest == sess.digest:
-                    # a session whose settled list is stale (or absent)
-                    # re-derives one from the raw shadow (the "rebuild"
-                    # kind) — still no state transfer
+                    # a just-restored session has no settled list yet;
+                    # like universe_dirty, it re-derives one from the
+                    # raw shadow (the "rebuild" kind) — still no state
+                    # transfer, still one request back to steady state
                     kind = (
                         "rebuild"
-                        if sess.universe_dirty or sess.pl is None
+                        if restored or sess.universe_dirty or sess.pl is None
                         else "delta"
                     )
                     ctx = PlanSessionContext(
                         kind, sess,
                         resident_pl=sess.pl if kind == "delta" else None,
+                        restored=restored,
                     )
-                    self.sessions.count_delta_hit()
-                    obs.metrics.tenant_count(
-                        "serve.delta_hits", tenant or OTHER_LABEL
-                    )
+                    if restored:
+                        # the acceptance counter: a digest-matching
+                        # request answered from the warm tier, no
+                        # re-register storm
+                        self.spill.note_restore_hit()
+                    else:
+                        self.sessions.count_delta_hit()
+                        obs.metrics.tenant_count(
+                            "serve.delta_hits", tenant or OTHER_LABEL
+                        )
                     req = PlanRequest(
                         argv, None, tenant, deadline=deadline
                     )
                     req.trace = trace
                     req.session_ctx = ctx
-                    return self._v2_plan_resp(self._dispatch_plan(req))
+                    sess.last_argv = list(argv)
+                    resp = self._dispatch_plan(req)
+                    enqueue_spec = (
+                        resp is not None
+                        and bool(resp.get("ok"))
+                        and resp.get("rc") == 0
+                    )
+                    return self._v2_plan_resp(resp)
                 # mismatch: offer the row-level diff — the client ships
                 # only the rows whose hashes differ
                 self._count_fallback("session_digest_mismatch", tenant)
@@ -1499,16 +1854,39 @@ class Daemon:
                 }, table
             finally:
                 self.sessions.checkin(sess)
+                if enqueue_spec:
+                    # plan-ahead AFTER the checkin (the speculator
+                    # needs the session lock): the next request's
+                    # answer starts computing in the idle window
+                    spec.enqueue(key)
 
         if op == "plan-rows":
             digest = str(hdr.get("digest", ""))
-            sess, busy = self.sessions.checkout(key)
+            # restore applies here too: the row diff the client built
+            # against a (possibly restored) hash table patches onto the
+            # restored raw shadow the same as onto a hot one
+            spec = self.speculator
+            sess, busy, restored = self._checkout_or_restore(key, tenant)
+            if sess is None and busy and spec.wait_for_key(
+                key, "", [],
+                (deadline - time.monotonic()) if deadline else 30.0,
+            ):
+                # a resync can never use an in-flight speculation:
+                # abort it, wait it out, re-claim
+                sess, busy, restored = self._checkout_or_restore(
+                    key, tenant
+                )
             if sess is None:
                 self._count_fallback(
                     "session_busy" if busy else "session_absent", tenant
                 )
                 return _resync_full()
+            enqueue_spec = False
             try:
+                rows_memo = sess.spec_memo
+                if rows_memo is not None:
+                    # a resyncing client has drifted past the memo
+                    spec.retire_miss(sess, rows_memo)
                 try:
                     patches = sstate.unpack_rows(blob)
                 except ValueError:
@@ -1530,13 +1908,22 @@ class Daemon:
                 obs.metrics.tenant_count(
                     "serve.resyncs_rows", tenant or OTHER_LABEL
                 )
-                ctx = PlanSessionContext("rows", sess)
+                ctx = PlanSessionContext("rows", sess, restored=restored)
                 req = PlanRequest(argv, None, tenant, deadline=deadline)
                 req.trace = trace
                 req.session_ctx = ctx
-                return self._v2_plan_resp(self._dispatch_plan(req))
+                sess.last_argv = list(argv)
+                resp = self._dispatch_plan(req)
+                enqueue_spec = (
+                    resp is not None
+                    and bool(resp.get("ok"))
+                    and resp.get("rc") == 0
+                )
+                return self._v2_plan_resp(resp)
             finally:
                 self.sessions.checkin(sess)
+                if enqueue_spec:
+                    spec.enqueue(key)
 
         return {
             "v": PROTO_V2, "ok": False, "op": "error",
@@ -1579,13 +1966,32 @@ class Daemon:
                 write_frame2(conn, {**self._hello(), "v": PROTO_V2})
             elif op == "stats":
                 write_frame2(conn, {**self._stats_doc(), "v": PROTO_V2})
+            elif op == "watch":
+                write_frame2(conn, {**self._watch_doc(), "v": PROTO_V2})
             elif op == "release":
-                n = self.sessions.release(str(hdr.get("tenant", "")))
-                # no warm tier yet (ROADMAP.md A7b): nothing released
-                # there, the key kept for the wire shape
+                # an explicit forget covers BOTH tiers: dropping only
+                # the hot session would leave a warm record that
+                # silently restores the "released" state later. Warm
+                # FIRST — once the records are gone no new restore can
+                # begin, and the hot sweep (which also bumps the
+                # release generation and marks in-flight sessions
+                # `released`) then catches everything resident
+                rel_tenant = str(hdr.get("tenant", ""))
+                warm = (
+                    self.spill.release(rel_tenant)
+                    if self.spill is not None else 0
+                )
+                n = self.sessions.release(rel_tenant)
+                if self.spill is not None:
+                    # second warm sweep AFTER the hot sweep marked
+                    # in-flight sessions `released`: a continuous
+                    # spill that indexed its record between the first
+                    # sweep and the mark would otherwise survive both
+                    # its own released re-check and the sweep above
+                    warm += self.spill.release(rel_tenant)
                 write_frame2(conn, {
                     "v": PROTO_V2, "ok": True, "op": "release",
-                    "released": n, "released_warm": 0,
+                    "released": n, "released_warm": warm,
                 })
             elif op == "shutdown":
                 write_frame2(conn, {"v": PROTO_V2, "ok": True})
@@ -1700,6 +2106,10 @@ class Daemon:
                         "v": PROTO_VERSION, "ok": True, "op": "dump-trace",
                         "trace": self.flight.to_perfetto(),
                     })
+                elif op == "watch":
+                    # the watch-lag scrape: answered on the connection
+                    # thread like stats, passive for the idle clock
+                    write_frame(conn, self._watch_doc())
                 elif op == "plan":
                     self._touch()
                     raw_argv = msg.get("argv", [])
@@ -1756,10 +2166,12 @@ class Daemon:
                 pass
 
     # -- lifecycle -------------------------------------------------------
-    # the pidfile-verification rule set: liveness probe + pid-recycling
-    # guard (module functions above)
-    _pid_alive = staticmethod(_pid_alive)
-    _pid_looks_like_daemon = staticmethod(_pid_looks_like_daemon)
+    # the ONE pidfile-verification rule set (liveness probe + pid-
+    # recycling guard), shared with the warm tier's spill-directory
+    # claim — the socket takeover and the spill-dir takeover cannot
+    # drift (serve/spill.py holds the implementations)
+    _pid_alive = staticmethod(spill_mod.pid_alive)
+    _pid_looks_like_daemon = staticmethod(spill_mod.pid_looks_like_daemon)
 
     def _pidfile_owner(self) -> Optional[int]:
         """The pid recorded next to the socket, or None."""
@@ -1831,18 +2243,41 @@ class Daemon:
     # thread-role: accept-loop
     def serve_forever(self) -> int:
         """Run until shutdown/idle-timeout/signal; 0 on a clean exit,
-        3 when the socket is unusable (live daemon, bind failure) or the
-        fault schedule is malformed."""
+        3 when the socket or spill dir is unusable (live daemon, bind
+        failure, live spill-dir owner) or the fault schedule is
+        malformed."""
         err = self._preflight_socket()
         if err is not None:
             self._log(f"serve: {err}")
             return 3
+        if self.spill_dir:
+            # the warm tier claims its directory with the same
+            # pidfile-verification rules as the socket: records from a
+            # DEAD previous owner are adopted (SIGKILL recovery), its
+            # half-written *.tmp orphans swept, a LIVE owner refused
+            store = spill_mod.SpillStore(
+                self.spill_dir, cap_mb=self.warm_cap_mb, log=self._log,
+            )
+            err = store.open()
+            if err is not None:
+                self._log(f"serve: {err}")
+                return 3
+            self.spill = store
+            self.sessions.spill = store
+            st = store.stats()
+            self._log(
+                f"serve: warm session tier on {self.spill_dir} "
+                f"(cap {st['cap_bytes'] >> 20}MB, "
+                f"{st['warm_entries']} records adopted)"
+            )
         listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         try:
             listener.bind(self.socket_path)
         except OSError as exc:
             self._log(f"serve: cannot bind {self.socket_path}: {exc}")
             listener.close()
+            if self.spill is not None:
+                self.spill.close()
             return 3
         listener.listen(16)
         listener.settimeout(0.5)
@@ -1888,10 +2323,30 @@ class Daemon:
                     self._log(f"serve: bad -serve-faults spec: {exc}")
                     return 3
                 self._log(f"serve: FAULT INJECTION ARMED: {plan.spec}")
-            if self.speculate:
+            # speculative plan-ahead worker (idle-priority; no-op thread
+            # unless speculation is on) and, with -watch, the continuous
+            # controller — both wait out the dispatcher-ready latch
+            # before touching planning, so startup order is unchanged
+            self.speculator.start()
+            if self.speculator.enabled:
+                self._log("serve: speculative plan-ahead enabled")
+            if self.watch_conn:
+                self.watcher = spec_mod.ZkWatcher(
+                    self,
+                    self.watch_conn,
+                    emit=self.watch_emit,
+                    poll_s=self.watch_poll,
+                    argv=self.watch_argv,
+                )
+                self.watcher.start()
                 self._log(
-                    "serve: speculative plan-ahead is not yet ported "
-                    "(ROADMAP.md A7b); serving without it"
+                    f"serve: watching zookeeper {self.watch_conn} "
+                    f"(poll {self.watch_poll:g}s"
+                    + (
+                        f", emitting plans to {self.watch_emit}"
+                        if self.watch_emit else ""
+                    )
+                    + ")"
                 )
             if self.batching:
                 self._log(
@@ -1966,11 +2421,34 @@ class Daemon:
                 ).start()
         finally:
             listener.close()
+            # internal producers first: the speculator/watcher stop
+            # FEEDING the dispatcher (their in-flight runs abort at the
+            # next preemption check and drain through dispatcher stop)
+            self.speculator.request_stop()
+            if self.watcher is not None:
+                self.watcher.request_stop()
             # flush the fair queue FIRST (its waiters would otherwise
             # block their connection threads through dispatcher stop)
             self._admission.stop()
             if self._coalescer is not None:
                 self._coalescer.stop()
+            self.speculator.join()
+            if self.watcher is not None:
+                self.watcher.join()
+            if self.spill is not None:
+                # the SHUTDOWN FLUSH (idle timeout, SIGTERM and the
+                # shutdown op all route through here): with the
+                # dispatchers drained, every idle resident spills so
+                # the next daemon restores instead of re-registering.
+                # SIGKILL never reaches this line — that path recovers
+                # from the continuous per-request spill instead.
+                flushed = self.sessions.flush_spill()
+                if flushed:
+                    self._log(
+                        f"serve: flushed {flushed} resident session"
+                        f"{'s' if flushed != 1 else ''} to the warm tier"
+                    )
+                self.spill.close()
             # every shutdown path restores the process-global seams:
             # a daemon run in a thread of a longer-lived process (the
             # tests, chip_smoke.py) must leave no fault plan, tracer

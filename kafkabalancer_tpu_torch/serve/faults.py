@@ -37,7 +37,20 @@ Sites (where the daemon calls in):
   the caller checks :func:`should` and acts);
 - ``transfer_fail``  — lane-context entry raises :class:`FaultError`
   (a failed device transfer/pin: the request crashes server-side and is
-  answered with a structured error, never a wrong plan).
+  answered with a structured error, never a wrong plan);
+- ``spill_write_fail`` — a warm-tier session spill (serve/spill.py)
+  raises :class:`FaultError` mid-write, like a full disk: the hot
+  session is untouched, the record is simply not persisted
+  (``paging.write_failures`` counts it);
+- ``spill_corrupt``  — the spill write lands a BIT-FLIPPED record on
+  disk (flipped after the checksum was computed, like media
+  corruption); the later restore must detect it, prune, count
+  ``paging.corrupt_drops``, and answer the request cold-but-correct.
+  Acts through :func:`should` (the writer performs the flip);
+- ``restore_delay``  — a warm-tier restore sleeps ``arg`` seconds
+  before reading the record (a slow disk on the recovery path; the
+  client's progress probes must ride it out, not misread it as a
+  wedge).
 """
 
 from __future__ import annotations
@@ -45,7 +58,10 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional, Tuple
 
-SITES = ("lane_crash", "dispatch_delay", "socket_drop", "transfer_fail")
+SITES = (
+    "lane_crash", "dispatch_delay", "socket_drop", "transfer_fail",
+    "spill_write_fail", "spill_corrupt", "restore_delay",
+)
 
 # the dispatch_delay default sleep when the spec names no arg
 DEFAULT_DELAY_S = 0.05
@@ -160,14 +176,16 @@ def fire(site: str) -> None:
         return
     if site == "lane_crash":
         raise LaneCrash("injected lane crash (occurrence scheduled)")
-    if site == "dispatch_delay":
+    if site in ("dispatch_delay", "restore_delay"):
         import time
 
         time.sleep(arg)
         return
     if site == "transfer_fail":
         raise FaultError("injected device-transfer failure")
-    # socket_drop acts through should(); reaching here
+    if site == "spill_write_fail":
+        raise FaultError("injected spill write failure")
+    # socket_drop/spill_corrupt act through should(); reaching here
     # means a caller mis-used fire() — act as a request fault, not pass
     raise FaultError(f"injected fault at {site}")
 

@@ -25,6 +25,13 @@ has run, so this package does not batch: ``-serve-microbatch``,
 ``-serve-batch-mode`` and ``-serve-admission-hold`` are accepted and
 have no effect.
 
+Daemon-internal work (speculative plan-ahead and ``-watch`` re-plans,
+serve/speculate.py) goes through the same queues and runs on the same
+lane request threads, under the lane's device and default stream: it
+never launches from a thread of its own. It starts only when the daemon
+is idle and is answered "deferred" when real traffic arrived while it
+sat queued (serve/daemon.py ``_handle_plan``).
+
 Layering: this module imports torch only lazily inside
 :meth:`Lane.context` — constructing a scheduler with ``device=None``
 lanes (tests) touches it not at all.
@@ -377,7 +384,13 @@ class LaneScheduler:
                 else:
                     orphaned.append(r)
             self.requeues += moved
-            self.abandoned += len(orphaned)
+            # internal (speculative/watch) requests never passed
+            # admission: excluded from `abandoned` so the identity
+            # admitted == requests + abandoned stays exact
+            self.abandoned += sum(
+                1 for r in orphaned
+                if getattr(r, "internal", None) is None
+            )
             if moved:
                 self._cv.notify_all()
         for r in orphaned:
@@ -447,10 +460,17 @@ class LaneScheduler:
             # abandoned = admitted work that never BEGAN handling and
             # got an error instead; a request wedged mid-handling still
             # reaches the requests counter, so counting it here too
-            # would double-book the conservation identity
+            # would double-book the conservation identity — and
+            # internal (speculative/watch) requests never passed
+            # admission at all, so they are excluded outright
             self.abandoned += len([
-                r for r in stuck if not getattr(r, "started", False)
-            ]) + len(orphaned)
+                r for r in stuck
+                if not getattr(r, "started", False)
+                and getattr(r, "internal", None) is None
+            ]) + sum(
+                1 for r in orphaned
+                if getattr(r, "internal", None) is None
+            )
             # affinity for buckets owned by the sick lane re-resolves
             # on the next route (a healthy lane takes ownership)
             self._affinity = {

@@ -40,6 +40,12 @@ Requests carry ``"op"``:
   the plan dispatcher — a scrape must not pause planning;
 - ``dump-trace`` — the flight recorder's span ring + request log as a
   Perfetto-loadable Chrome trace document (the client writes the file);
+- ``watch``    — the watch-mode lag scrape (serve/speculate.py
+  ``ZkWatcher``): ticks/reads/errors, emitted-plan and speculation-hit
+  counts, ``last_read_age_s`` / ``last_event_lag_s`` staleness, and
+  the watcher's current state digest — answered on the connection
+  thread like ``stats`` and equally passive for the idle clock; the
+  same block also rides the ``stats`` document;
 - ``shutdown`` — orderly daemon exit (acknowledged before the listener
   closes).
 
@@ -72,9 +78,8 @@ v2-only session ops (serve/sessions.py):
 - ``plan-rows``  — the row-level re-sync: the blob is the packed
   changed-row records (serve/state.py); the daemon patches its
   resident raw rows, re-settles, and plans.
-- ``release``    — drop a tenant's resident sessions (the response
-  reports ``released`` and, for the wire shape's sake, ``released_warm``
-  — always 0: this package has no warm session tier yet).
+- ``release``    — drop a tenant's resident sessions, hot AND warm
+  (the response reports both: ``released`` / ``released_warm``).
 
 End-to-end tracing (obs/edge.py): a plan-family **v2** header may carry ``"trace"`` — the
 client's compact trace context ``{"id": <16 hex>, "parent": <client
@@ -94,6 +99,14 @@ per handshake (obs/edge.py ``estimate_offset``). v1 frames NEVER carry
 any of this — a v1 exchange stays byte-identical to every prior
 release, and scrape hellos that omit the clock key get the exact
 pre-v8 hello document.
+
+Session durability (serve/spill.py): with ``-serve-session-spill-dir``
+set, evicted/expired/flushed sessions persist as checksummed disk
+records, and a ``plan-delta``/``plan-rows`` for an absent session first
+tries to RESTORE the spilled record — the ``resync: "full"`` answer only
+remains for true cold misses (no record, corrupt record, foreign
+record). The wire shapes above are unchanged; durability is invisible
+to the client except as fewer full resyncs.
 
 Nothing in this module (or ``serve.client``) imports torch or numpy:
 the client side of a forwarded invocation must stay as light as an

@@ -52,7 +52,7 @@ from contextlib import contextmanager
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Set, Tuple
 
 from kafkabalancer_tpu_torch.models import Partition, PartitionList
-from kafkabalancer_tpu_torch.serve import state as sstate
+from kafkabalancer_tpu_torch.serve import speculate, state as sstate
 
 SessionKey = Tuple[str, str]
 
@@ -102,6 +102,10 @@ class ClusterSession:
         self.sig = sig
         self.lock = threading.Lock()
         self.in_use = False
+        # set by SessionStore.release: an explicitly forgotten session
+        # must not be re-persisted by an in-flight request's continuous
+        # spill (the spill layer refuses released sessions)
+        self.released = False
         self.last_used = time.monotonic()
         self.version = 1
         # the raw-row shadow + its canonical row bytes; digest is None
@@ -122,6 +126,12 @@ class ClusterSession:
         self.universe_dirty = False
         self.bucket: Optional[Any] = None
         self.approx_bytes = 0
+        # speculative plan-ahead (serve/speculate.py): the canonical
+        # argv of the last clean session request (what the speculator
+        # re-plans with) and the live memoized answer, if any — the
+        # memo is owned/retired through the Speculator's counters
+        self.last_argv: Optional[List[str]] = None
+        self.spec_memo: Optional[Any] = None
         from kafkabalancer_tpu_torch.serve.cache import TensorizeRowCache
 
         self.row_cache = TensorizeRowCache()
@@ -308,12 +318,12 @@ class ClusterSession:
 def session_from_rows(
     tenant: str, sig: str, version: int, rows: List[sstate.RowFields]
 ) -> ClusterSession:
-    """Rebuild a session from raw rows (the record a warm session tier
-    keeps): the raw shadow, canonical bytes, broker multiset and
-    predicted digest are all re-derived from the rows — the settled live
-    list and the trusted-delta cache re-prime on the session's FIRST
-    request (the ``rebuild`` kind re-settles from raw), after which the
-    tenant is on the delta fast path."""
+    """Rebuild a session from spilled raw rows (serve/spill.py): the
+    raw shadow, canonical bytes, broker multiset and predicted digest
+    are all re-derived from the record — the settled live list and the
+    trusted-delta cache re-prime on the restored session's FIRST
+    request (the ``rebuild`` kind re-settles from raw), after which
+    the tenant is back on the delta fast path."""
     sess = ClusterSession(tenant, sig)
     sess.version = version
     sess.raw = [_partition_from_fields(f) for f in rows]
@@ -327,12 +337,27 @@ def session_from_rows(
 class SessionStore:
     """The daemon's resident sessions: per-tenant, LRU-capped, idle
     expiry, bytes accounted. All methods thread-safe; sessions checked
-    out ``in_use`` are never evicted. Eviction and expiry discard a
-    session (this package has no warm tier yet)."""
+    out ``in_use`` are never evicted.
 
-    def __init__(self, cap: int = 64, idle_s: float = 3600.0) -> None:
+    With a warm tier attached (:attr:`spill`, serve/spill.py), the hot
+    cap stops being a discard boundary: LRU eviction and idle expiry
+    DEMOTE the session to a disk record instead of dropping it, and
+    explicit :meth:`release` forgets both tiers. The spill writes run
+    inside the store lock — demotion is the rare path, and a spill
+    racing a concurrent restore of the same key would be worse."""
+
+    def __init__(
+        self,
+        cap: int = 64,
+        idle_s: float = 3600.0,
+        spill: Optional[Any] = None,
+    ) -> None:
         self.cap = max(1, cap)
         self.idle_s = idle_s
+        self.spill = spill
+        # the daemon's Speculator (serve/speculate.py), when one is
+        # attached: session removal retires any live memo as poisoned
+        self.spec: Optional[Any] = None
         self._lock = threading.Lock()
         self._sessions: Dict[SessionKey, ClusterSession] = {}
         self.registered = 0
@@ -351,8 +376,18 @@ class SessionStore:
         # and under-count forever.
         self._retired_cache = {"hits": 0, "misses": 0, "rows_reused": 0}
         self._zombies: List[ClusterSession] = []
+        # per-tenant release generations (see release/release_gen)
+        self._release_gens: Dict[str, int] = {}
 
     def _retire(self, sess: ClusterSession) -> None:
+        # a removed/replaced session's memoized answer can never be
+        # served: retire it as poisoned BEFORE the zombie park (the
+        # state it predicts is superseded either way)
+        if sess.spec_memo is not None:
+            if self.spec is not None:
+                self.spec.poison_session(sess)
+            else:
+                sess.spec_memo = None
         if sess.in_use:
             self._zombies.append(sess)
             return
@@ -427,12 +462,46 @@ class SessionStore:
                 self._retire(sess)
         sess.lock.release()
 
+    def _spill_locked(self, key: SessionKey, sess: ClusterSession) -> None:
+        """Demote one session to the warm tier (no-op without one, or
+        for a session whose prediction is poisoned — the spill layer
+        refuses untrustworthy state itself). A session with a LIVE
+        speculative memo is deliberately NOT re-spilled: its in-memory
+        state has advanced past the answer the client has seen, while
+        the continuous spill of the last REAL request already persisted
+        exactly the state the client will describe next — overwriting
+        that record would turn the next restore into a resync."""
+        if self.spill is not None and sess.spec_memo is None:
+            self.spill.spill(key, sess)
+
     def put(self, key: SessionKey, sess: ClusterSession) -> None:
-        """Insert/replace a freshly registered session, discarding the
-        least-recently-used idle sessions past the cap."""
+        """Insert/replace a freshly registered session, demoting the
+        least-recently-used idle sessions past the cap to the warm
+        tier (or discarding them when no spill dir is configured)."""
+        self._insert(key, sess, registered=True)
+
+    def adopt(self, key: SessionKey, sess: ClusterSession) -> bool:
+        """Insert a session RESTORED from the warm tier — same LRU
+        discipline as :meth:`put`, but not counted as a register (the
+        client never re-sent the cluster; that is the point). Returns
+        False — nothing inserted — when the key is already occupied: a
+        concurrent register that won the restore window holds newer
+        state and must survive, never be clobbered by the older
+        spilled record."""
+        return self._insert(
+            key, sess, registered=False, only_if_absent=True
+        )
+
+    def _insert(
+        self, key: SessionKey, sess: ClusterSession, registered: bool,
+        only_if_absent: bool = False,
+    ) -> bool:
         with self._lock:
             prev = self._sessions.get(key)
-            self.registered += 1
+            if only_if_absent and prev is not None:
+                return False
+            if registered:
+                self.registered += 1
             sess.last_used = time.monotonic()
             if prev is not None and prev is not sess:
                 self._retire(prev)
@@ -446,24 +515,71 @@ class SessionStore:
                     ),
                 )
                 for _ts, k in idle[: len(self._sessions) - self.cap]:
-                    self._retire(self._sessions[k])
+                    victim = self._sessions[k]
+                    self._spill_locked(k, victim)
+                    self._retire(victim)
                     del self._sessions[k]
                     self.evicted_lru += 1
+        return True
 
     def release(self, tenant: str) -> int:
-        """Drop every session of ``tenant`` (all flag signatures) — an
-        explicit forget. Returns how many were dropped."""
+        """Drop every session of ``tenant`` (all flag signatures) from
+        the HOT tier — an explicit forget, never a demotion; the
+        caller (the daemon's ``release`` op) drops the warm tier's
+        records separately (warm FIRST, so no new restore can begin
+        once the hot sweep runs). Returns how many were dropped.
+
+        Every dropped session — zombies of the tenant included — is
+        marked ``released`` so an in-flight request's continuous spill
+        cannot resurrect it to disk, and the tenant's release
+        GENERATION bumps so a restore racing this call is detected and
+        dropped (daemon._checkout_or_restore)."""
         with self._lock:
+            self._release_gens[tenant] = (
+                self._release_gens.get(tenant, 0) + 1
+            )
             keys = [k for k in self._sessions if k[0] == tenant]
             for k in keys:
+                self._sessions[k].released = True
                 self._retire(self._sessions[k])
                 del self._sessions[k]
+            for z in self._zombies:
+                if z.tenant == tenant:
+                    z.released = True
+                    if z.spec_memo is not None:
+                        if self.spec is not None:
+                            self.spec.poison_session(z)
+                        else:
+                            z.spec_memo = None
             self.released += len(keys)
             return len(keys)
 
+    def discard(self, key: SessionKey, sess: ClusterSession) -> None:
+        """Drop ONE just-adopted session from the hot tier — the
+        restore-vs-release race unwind (daemon._checkout_or_restore).
+        Only the exact ``sess`` is swept: a fresh session registered
+        under the same key while the restore was in flight must
+        survive. Nothing is counted as a client-issued release — no
+        generation bump, no ``released`` fold — but the session is
+        marked ``released`` so its continuous spill cannot resurrect
+        the forgotten state to disk."""
+        with self._lock:
+            sess.released = True
+            if self._sessions.get(key) is sess:
+                self._retire(sess)
+                del self._sessions[key]
+
+    def release_gen(self, tenant: str) -> int:
+        """How many times ``tenant`` has been released — the restore
+        path snapshots this before reading a warm record and drops the
+        restored session when it moved underneath."""
+        with self._lock:
+            return self._release_gens.get(tenant, 0)
+
     def sweep(self, now: Optional[float] = None) -> int:
-        """Expire idle sessions; called from the daemon's accept-loop
-        tick. Returns how many expired."""
+        """Expire idle sessions (demoting them to the warm tier when
+        one is attached); called from the daemon's accept-loop tick.
+        Returns how many expired."""
         if self.idle_s <= 0:
             return 0
         t = time.monotonic() if now is None else now
@@ -473,21 +589,61 @@ class SessionStore:
                 if not s.in_use and t - s.last_used > self.idle_s
             ]
             for k in expired:
+                self._spill_locked(k, self._sessions[k])
                 self._retire(self._sessions[k])
                 del self._sessions[k]
             self.expired_idle += len(expired)
             return len(expired)
 
+    def flush_spill(self) -> int:
+        """The shutdown flush: spill every idle resident session (the
+        daemon calls this after its dispatchers drained, so in-use
+        sessions are stragglers of crashed connections — skipped, the
+        continuous spill already persisted their last clean state).
+        Sessions STAY hot; only the disk copy is refreshed. Returns
+        how many records were written."""
+        if self.spill is None:
+            return 0
+        with self._lock:
+            flushed = 0
+            for k, s in self._sessions.items():
+                # spec-memo sessions keep their last REAL spill record
+                # (see _spill_locked) — flushing the advanced state
+                # would break the next restore's digest match
+                if (
+                    not s.in_use
+                    and s.spec_memo is None
+                    and self.spill.spill(k, s)
+                ):
+                    flushed += 1
+            return flushed
+
     def stats_by_tenant(self) -> Dict[str, Dict[str, int]]:
-        """Per-tenant footprint (session count + approx bytes), summed
-        across flag signatures — the scrape's ``tenants`` block reads
-        session attribution through this."""
+        """Per-tenant footprint across BOTH tiers (hot session count +
+        approx bytes, warm record count + bytes), summed across flag
+        signatures — the scrape's ``tenants`` block reads session
+        attribution through this. The warm half is the demotion-
+        accounting fix: a tenant whose sessions were all demoted keeps
+        its byte attribution visible (the top-tenants table shows a
+        hot/warm tier column) instead of silently vanishing, while its
+        delta-hit/latency counters live on in the label families."""
         with self._lock:
             out: Dict[str, Dict[str, int]] = {}
             for (tenant, _sig), s in self._sessions.items():
-                e = out.setdefault(tenant, {"sessions": 0, "bytes": 0})
+                e = out.setdefault(tenant, {
+                    "sessions": 0, "bytes": 0,
+                    "warm_sessions": 0, "warm_bytes": 0,
+                })
                 e["sessions"] += 1
                 e["bytes"] += s.approx_bytes
+        if self.spill is not None:
+            for tenant, w in self.spill.stats_by_tenant().items():
+                e = out.setdefault(tenant, {
+                    "sessions": 0, "bytes": 0,
+                    "warm_sessions": 0, "warm_bytes": 0,
+                })
+                e["warm_sessions"] += w["warm_sessions"]
+                e["warm_bytes"] += w["warm_bytes"]
         return out
 
     def stats(self) -> Dict[str, int]:
@@ -525,15 +681,20 @@ class PlanSessionContext:
         kind: str,
         session: ClusterSession,
         resident_pl: Optional[PartitionList] = None,
+        restored: bool = False,
     ) -> None:
         # kind: "register" (parse+snapshot) | "delta" (resident fast
         # path) | "rebuild" (digest matched but the settled list is
-        # stale — universe_dirty, or no settled list yet — so re-derive
-        # it from the raw shadow) | "rows" (client-shipped row patches
-        # applied, then rebuild)
+        # stale — universe_dirty, or the session was just restored
+        # from a warm spill record and has no settled list yet — so
+        # re-derive it from the raw shadow) | "rows" (client-shipped
+        # row patches applied, then rebuild)
         self.kind = kind
         self.session = session
         self.resident_pl = resident_pl
+        # this request re-homed the session from the warm tier (the
+        # daemon attributes it serve.restore_hit)
+        self.restored = restored
         self.snapshotted = False
         # this request's mirrored-mutation log, for probe-move reverts
         self._log: List[Tuple[int, List[int]]] = []
@@ -559,6 +720,10 @@ class PlanSessionContext:
             self.snapshotted = True
 
     def change(self, part: Partition) -> None:
+        # per-applied-move preemption seam: a speculative run aborts
+        # here (one getattr for every real request — see
+        # serve/speculate.py maybe_abort_dispatch)
+        speculate.maybe_abort_dispatch()
         rec = self.session.change(part)
         if rec is not None:
             self._log.append(rec)

@@ -35,7 +35,7 @@ from __future__ import annotations
 import hashlib
 import json
 import struct
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 ROW_HASH_BYTES = 8
 
@@ -84,6 +84,10 @@ def canonical_row_bytes(
 
 def row_hash(canonical: bytes) -> bytes:
     return hashlib.blake2b(canonical, digest_size=ROW_HASH_BYTES).digest()
+
+
+def fields_row_hash(fields: RowFields) -> bytes:
+    return row_hash(canonical_row_bytes(*fields))
 
 
 def partition_fields(p: object) -> RowFields:
@@ -361,6 +365,162 @@ def unpack_rows(blob: bytes) -> List[Tuple[int, RowFields]]:
             idx, (topic, partition, replicas, weight, nrep, brokers, ncons)
         ))
     return out
+
+
+def diff_rows(
+    mine: Sequence[bytes], theirs: Sequence[bytes]
+) -> Optional[List[int]]:
+    """Row indices where ``mine`` (the client's hashes) differ from
+    ``theirs`` (the daemon's table), or None when the shapes are
+    incompatible (row count changed — structural drift takes the full
+    re-sync path)."""
+    if len(mine) != len(theirs):
+        return None
+    return [i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b]
+
+
+# --- spill records (the warm session tier) ---------------------------------
+#
+# A spilled session is one self-contained, versioned, CHECKSUMMED file:
+#
+#   magic "KBSP" | u32 format version | u32 header_len | header JSON
+#   | u64 blob_len | blob (pack_rows of every raw row, indexes 0..n-1)
+#   | 32-byte sha256 over everything before it
+#
+# The header carries the session identity (tenant, flags signature), the
+# predicted state digest, the list version, the row count, and the
+# writer's platform fingerprint (byte order + package version). The
+# correctness contract is the session invariant extended to disk: a
+# record that is truncated, bit-flipped, format-version-skewed, or
+# written by a foreign platform/package NEVER restores — it raises
+# :class:`SpillCorrupt` (or fails the header gate) and the caller
+# treats it as a clean cold miss. The digest gate in serve/sessions.py
+# then guarantees a restored-but-stale record can still never produce
+# a wrong plan: a non-matching digest degrades to a row/full resync.
+
+SPILL_MAGIC = b"KBSP"
+SPILL_FORMAT_VERSION = 1
+
+_SPILL_HEAD = struct.Struct(">4sII")
+_SPILL_BLOB_LEN = struct.Struct(">Q")
+_SPILL_SUM_BYTES = 32
+# a single record header has no business being megabytes
+_SPILL_MAX_HEADER = 1 << 20
+
+
+class SpillCorrupt(ValueError):
+    """A spill record that must not restore: truncated, checksum
+    mismatch, bad magic/format version, or malformed row payload."""
+
+
+def spill_platform() -> str:
+    """The writer fingerprint embedded in every record. The row codec
+    packs explicit big-endian, so byte order is technically inert —
+    but a record written by a different build is a clean cold miss BY
+    POLICY (the restore path must never have to reason about foreign
+    encodings), so the package version rides along too. This package's
+    version carries ``+torch``: a record of the JAX package is a clean
+    cold miss here, and the other way round."""
+    import sys
+
+    from kafkabalancer_tpu_torch import __version__
+
+    return f"{sys.byteorder}:{__version__}"
+
+
+def pack_spill_record(
+    meta: Dict[str, object], rows: Sequence[RowFields]
+) -> bytes:
+    """One session's raw rows as a spill record. ``meta`` is the
+    caller's header dict (identity + digest); the row count and
+    platform fingerprint are stamped here so they cannot be forgotten."""
+    hdr = dict(meta)
+    hdr["rows"] = len(rows)
+    hdr["platform"] = spill_platform()
+    header = json.dumps(hdr, separators=(",", ":")).encode("utf-8")
+    blob = pack_rows(list(enumerate(rows)))
+    body = b"".join((
+        _SPILL_HEAD.pack(SPILL_MAGIC, SPILL_FORMAT_VERSION, len(header)),
+        header,
+        _SPILL_BLOB_LEN.pack(len(blob)),
+        blob,
+    ))
+    return body + hashlib.sha256(body).digest()
+
+
+def read_spill_header(buf: bytes) -> Dict[str, object]:
+    """Just the header of a spill record (no checksum pass) — the
+    warm-tier INDEX scan uses this to attribute records to tenants
+    without reading whole payloads. Raises :class:`SpillCorrupt` on
+    anything that is not a well-formed record head."""
+    if len(buf) < _SPILL_HEAD.size:
+        raise SpillCorrupt("truncated spill record head")
+    magic, fmt, hlen = _SPILL_HEAD.unpack_from(buf, 0)
+    if magic != SPILL_MAGIC:
+        raise SpillCorrupt(f"bad spill magic {magic!r}")
+    if fmt != SPILL_FORMAT_VERSION:
+        raise SpillCorrupt(
+            f"spill format version {fmt} (want {SPILL_FORMAT_VERSION})"
+        )
+    if hlen > _SPILL_MAX_HEADER:
+        raise SpillCorrupt(f"spill header length {hlen} is absurd")
+    if len(buf) < _SPILL_HEAD.size + hlen:
+        raise SpillCorrupt("truncated spill header")
+    try:
+        hdr = json.loads(
+            buf[_SPILL_HEAD.size: _SPILL_HEAD.size + hlen].decode("utf-8")
+        )
+    except ValueError as exc:
+        raise SpillCorrupt(f"spill header is not JSON: {exc}") from None
+    if not isinstance(hdr, dict):
+        raise SpillCorrupt("spill header is not a JSON object")
+    return hdr
+
+
+def unpack_spill_record(
+    buf: bytes,
+) -> Tuple[Dict[str, object], List[RowFields]]:
+    """The full validated read: header + rows, or :class:`SpillCorrupt`.
+    The checksum is verified BEFORE any row decode — a bit-flipped
+    payload is rejected wholesale, never partially trusted."""
+    hdr = read_spill_header(buf)
+    if len(buf) < _SPILL_SUM_BYTES:
+        raise SpillCorrupt("truncated spill record (no checksum)")
+    body, want = buf[:-_SPILL_SUM_BYTES], buf[-_SPILL_SUM_BYTES:]
+    if hashlib.sha256(body).digest() != want:
+        raise SpillCorrupt("spill checksum mismatch")
+    if hdr.get("platform") != spill_platform():
+        raise SpillCorrupt(
+            f"foreign-platform spill record ({hdr.get('platform')!r} "
+            f"vs {spill_platform()!r})"
+        )
+    _magic, _fmt, hlen = _SPILL_HEAD.unpack_from(buf, 0)
+    off = _SPILL_HEAD.size + hlen
+    if off + _SPILL_BLOB_LEN.size > len(body):
+        raise SpillCorrupt("truncated spill record (no blob length)")
+    (blen,) = _SPILL_BLOB_LEN.unpack_from(buf, off)
+    off += _SPILL_BLOB_LEN.size
+    if off + blen != len(body):
+        raise SpillCorrupt(
+            f"spill blob length {blen} disagrees with record size"
+        )
+    try:
+        packed = unpack_rows(buf[off: off + blen])
+    except ValueError as exc:
+        raise SpillCorrupt(f"spill row payload: {exc}") from None
+    n = hdr.get("rows")
+    if not isinstance(n, int) or n != len(packed):
+        raise SpillCorrupt(
+            f"spill row count {len(packed)} != header {n!r}"
+        )
+    rows: List[Optional[RowFields]] = [None] * n
+    for idx, fields in packed:
+        if idx >= n or rows[idx] is not None:
+            raise SpillCorrupt(f"spill row index {idx} out of order")
+        rows[idx] = fields
+    if any(r is None for r in rows):
+        raise SpillCorrupt("spill row indexes are not contiguous")
+    return hdr, rows  # type: ignore[return-value]
 
 
 def diff_rows(

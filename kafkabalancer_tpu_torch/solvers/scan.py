@@ -735,7 +735,14 @@ def _run_chunk(
     ``"polish"`` runs the move/swap alternation of ``solvers/polish.py``
     (log length ``2 * max_moves``) and ``"leader"`` the rebalance-leaders
     session of ``solvers/leader.py``. ``lam > 0`` runs the move and
-    polish sessions on the anti-colocation objective (``xla`` only)."""
+    polish sessions on the anti-colocation objective (``xla`` only).
+
+    A SPECULATIVE daemon run (serve/speculate.py) checks its preemption
+    flag here, once per chunk round: real traffic aborts idle plan-ahead
+    work before the next chunk reaches the device."""
+    from kafkabalancer_tpu_torch.serve.speculate import maybe_abort_dispatch
+
+    maybe_abort_dispatch()
     all_allowed = all_allowed_of(dp)
     d = to_device(dp, device, dtype, all_allowed=all_allowed)
     B = dp.bvalid.shape[0]

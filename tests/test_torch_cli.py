@@ -252,6 +252,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.serve.devmem\n"
         "import kafkabalancer_tpu_torch.serve.admission\n"
         "import kafkabalancer_tpu_torch.serve.state\n"
+        "import kafkabalancer_tpu_torch.serve.speculate\n"
+        "import kafkabalancer_tpu_torch.serve.spill\n"
+        "import kafkabalancer_tpu_torch.serve.edge_cache\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -340,9 +343,9 @@ def test_polish_with_rebalance_leader_says_it_is_ignored():
         ("-metrics-json=m.json", "A1"),
         ("-stats", "A1"),
         ("-explain=-", "A1"),
-        # -serve itself is ported; the serving flags left for a later
-        # slice (the warm session tier, speculation, -watch) still exit 3
-        pytest.param("-serve-session-spill-dir=/x", "A7b", id="-serve-A7"),
+        # -serve itself is ported; of the serving flags only A8's
+        # prewarm grid is left for a later slice
+        pytest.param("-serve-prewarm=1000x10", "A8", id="-serve-A8"),
         ("-jax-profile=prof", "A9"),
     ],
 )

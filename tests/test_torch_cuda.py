@@ -700,3 +700,58 @@ def test_served_concurrent_on_the_card_matches_solo_plans(cuda_device, tmp_path)
         assert d._fallbacks == {"session_absent": 2}
     assert [g[:2] for g in got] == [w[:2] for w in want]
     assert sk.shard_score.launches == want_launches
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_speculative_memo_on_the_card(cuda_device, tmp_path, engine):
+    """Speculative plan-ahead with a lane on the card: a three-round
+    deployment loop (the move applied to the file between rounds) is
+    answered from memos in rounds 2-3, each answer equal to the in-process
+    move on the card, and the speculative runs launch the engine's kernel
+    (K1 for the torch session, B2 for the whole-session kernel)."""
+    import io
+    import json
+    import time
+
+    from kafkabalancer_tpu_torch.codecs import (
+        get_partition_list_from_reader,
+        write_partition_list,
+    )
+    from torch_helpers import running_daemon
+
+    path = _cluster_file(str(tmp_path), 8, n_parts=3000, n_brokers=60)
+    args = ["-input-json", f"-input={path}", "-fused", "-fused-batch=100",
+            "-max-reassign=1", "-min-unbalance=1e-7",
+            f"-fused-engine={engine}"]
+    with running_daemon(devices=[cuda_device], lanes=0, speculate=True,
+                        batching=True) as (sock, d, _logs):
+        for rnd in range(3):
+            want = _cli(args + ["-no-daemon"], device=cuda_device)
+            hits0 = d.speculator.stats()["hits"]
+            attempts0 = d.speculator.stats()["attempts"]
+            got = _cli(args + [f"-serve-socket={sock}"])
+            assert got[:2] == want[:2] and got[0] == 0, rnd
+            assert d.speculator.stats()["hits"] - hits0 == (1 if rnd else 0)
+            with open(path) as fh:
+                pl = get_partition_list_from_reader(fh.read(), True)
+            moved = {(r["topic"], r["partition"]): r["replicas"]
+                     for r in json.loads(got[1])["partitions"]}
+            for p in pl.partitions:
+                p.replicas = moved.get((p.topic, p.partition), p.replicas)
+            buf = io.StringIO()
+            write_partition_list(buf, pl)
+            with open(path, "w") as fh:
+                fh.write(buf.getvalue())
+            deadline = time.monotonic() + 120
+            while True:
+                st = d.speculator.stats()
+                if st["attempts"] > attempts0 and not st["inflight"]:
+                    break
+                assert time.monotonic() < deadline, st
+                time.sleep(0.02)
+        made = d.internal_launches.get("spec", {})
+        st = d.speculator.stats()
+    kernel = "shard_score" if engine == "xla" else "pallas_session"
+    assert made.get(kernel, 0) > 0, made
+    assert st["attempts"] == st["hits"] + st["misses"] + st["poisoned"] + (
+        st["memos"])

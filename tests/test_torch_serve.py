@@ -209,11 +209,6 @@ def test_serve_flag_checks():
 
 @pytest.mark.parametrize("flag,item", [
     ("-serve-prewarm=1000x10", "A8"),
-    ("-serve-session-spill-dir=/x", "A7b"),
-    ("-serve-warm-cap-mb=1", "A7b"),
-    ("-watch=zk:1", "A7b"),
-    ("-watch-emit=-", "A7b"),
-    ("-watch-poll=1", "A7b"),
     ("-serve-stats", "A1"),
     ("-metrics-prom=-", "A1"),
     ("-stats", "A1"),
@@ -226,21 +221,36 @@ def test_flags_of_later_slices_exit_3(flag, item):
     assert f"(ROADMAP.md {item}" in err, err
 
 
-def test_speculation_and_edge_cache_flags_are_accepted(cpu_daemon):
-    sock, _d, _logs = cpu_daemon
-    want = run_port(["-input-json", f"-input={FIXTURE}", "-no-daemon"])
-    for extra in (["-serve-speculate=false"], ["-serve-speculate-off"],
-                  ["-no-edge-cache"], ["-edge-cache=false"]):
-        got = run_port(["-input-json", f"-input={FIXTURE}",
-                        f"-serve-socket={sock}"] + extra)
-        assert got[:2] == want[:2], extra
+def test_speculation_and_edge_cache_flags_are_accepted(sock_dir, monkeypatch):
+    """Each flag takes effect as in the reference: ``-serve`` speculates
+    by default and ``-serve-speculate=false`` / ``-serve-speculate-off``
+    turn it off (the daemon's ``speculation.enabled``); a forwarded
+    client keeps an edge-cache entry beside the socket by default and
+    none with ``-no-edge-cache`` / ``-edge-cache=false`` — the answers
+    are ``-no-daemon``'s either way."""
+    import kafkabalancer_tpu_torch.serve.daemon as dmod
 
-
-def test_daemon_logs_that_speculation_is_not_ported():
-    with running_daemon(speculate=True) as (_sock, _d, logs):
-        pass
-    assert sum("speculative plan-ahead is not yet ported" in m
-               for m in logs) == 1, logs
+    seen = []
+    monkeypatch.setattr(dmod.Daemon, "serve_forever",
+                        lambda self: seen.append(self.speculator.enabled) or 0)
+    sock = os.path.join(sock_dir, "spec.sock")
+    for extra, want_on in (([], True), (["-serve-speculate=false"], False),
+                           (["-serve-speculate-off"], False)):
+        assert run_port(["-serve", f"-serve-socket={sock}"] + extra)[0] == 0
+        assert seen[-1] is want_on, extra
+    monkeypatch.undo()
+    src = os.path.join(sock_dir, "cluster.json")
+    shutil.copyfile(FIXTURE, src)
+    want = run_port(["-input-json", f"-input={src}", "-no-daemon"])
+    for extra, cached in ((["-no-edge-cache"], False),
+                          (["-edge-cache=false"], False), ([], True)):
+        with running_daemon() as (sock, _d, _logs):
+            got = run_port(["-input-json", f"-input={src}",
+                            f"-serve-socket={sock}"] + extra)
+            assert got[:2] == want[:2], extra
+            entries = (os.listdir(sock + ".edge")
+                       if os.path.isdir(sock + ".edge") else [])
+            assert bool(entries) is cached, (extra, entries)
 
 
 def test_batching_flags_are_accepted_and_every_request_runs_solo(cpu_daemon):

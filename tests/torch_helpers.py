@@ -120,3 +120,117 @@ def running_daemon(**kw):
         shutil.rmtree(d, ignore_errors=True)
     assert not t.is_alive(), "daemon thread did not exit"
     assert rc_box == [0], (rc_box, logs)
+
+
+def package(name):
+    """The serving surface of one package, for the differential tests
+    that run one scenario through the JAX package (``"jax"``) and
+    through this port (``"torch"``): its cli, client, daemon class,
+    serve modules and models, plus the daemon keyword arguments that
+    put it on the CPU."""
+    import types
+
+    if name == "jax":
+        from kafkabalancer_tpu import cli as pcli
+        from kafkabalancer_tpu import models as pmodels
+        from kafkabalancer_tpu import obs as pobs
+        from kafkabalancer_tpu.codecs import zookeeper as pzk
+        from kafkabalancer_tpu.serve import client as pclient
+        from kafkabalancer_tpu.serve import daemon as pdaemon
+        from kafkabalancer_tpu.serve import edge_cache as pec
+        from kafkabalancer_tpu.serve import sessions as psessions
+        from kafkabalancer_tpu.serve import speculate as pspec
+        from kafkabalancer_tpu.serve import spill as pspill
+        from kafkabalancer_tpu.serve import state as pstate
+
+        daemon_kw = {}
+    else:
+        from kafkabalancer_tpu_torch import cli as pcli
+        from kafkabalancer_tpu_torch import models as pmodels
+        from kafkabalancer_tpu_torch import obs as pobs
+        from kafkabalancer_tpu_torch.codecs import zookeeper as pzk
+        from kafkabalancer_tpu_torch.serve import client as pclient
+        from kafkabalancer_tpu_torch.serve import daemon as pdaemon
+        from kafkabalancer_tpu_torch.serve import edge_cache as pec
+        from kafkabalancer_tpu_torch.serve import sessions as psessions
+        from kafkabalancer_tpu_torch.serve import speculate as pspec
+        from kafkabalancer_tpu_torch.serve import spill as pspill
+        from kafkabalancer_tpu_torch.serve import state as pstate
+
+        daemon_kw = {"devices": ["cpu"]}
+    return types.SimpleNamespace(
+        name=name, cli=pcli, models=pmodels, obs=pobs, zk=pzk,
+        client=pclient, daemon=pdaemon, Daemon=pdaemon.Daemon,
+        edge_cache=pec, sessions=psessions, speculate=pspec, spill=pspill,
+        state=pstate, daemon_kw=daemon_kw,
+    )
+
+
+def run_pkg(pkg, args, stdin=""):
+    """``cli.run`` of ``pkg`` on ``args``: ``(rc, stdout, stderr)``. An
+    in-process run of the port (``-no-daemon``) plans on the CPU
+    (``device="cpu"``), as the port's daemons in these tests do."""
+    import io
+
+    kw = {}
+    if pkg.name == "torch" and "-no-daemon" in args:
+        kw["device"] = "cpu"
+    out, err = io.StringIO(), io.StringIO()
+    rc = pkg.cli.run(
+        io.StringIO(stdin), out, err, ["kafkabalancer"] + args, **kw
+    )
+    return rc, out.getvalue(), err.getvalue()
+
+
+class PkgDaemon:
+    """One package's daemon in a thread of this process, restartable on
+    the same socket (and spill directory): ``start(**kw)`` returns the
+    daemon once it answers hello, ``stop()`` sends the shutdown op and
+    checks the thread ended with 0. ``kill()`` ends it WITHOUT the
+    shutdown flush (the record on disk is what the continuous spill
+    wrote), like a SIGKILL of a daemon process."""
+
+    def __init__(self, pkg, sock, **kw):
+        self.pkg, self.sock, self.kw = pkg, sock, kw
+        self.d = self.t = self.rc_box = None
+        self.logs = []
+
+    def start(self, **kw):
+        import threading
+        import time
+
+        args = dict(self.pkg.daemon_kw)
+        args.update(idle_timeout=120.0, warm=False, log=self.logs.append)
+        args.update(self.kw)
+        args.update(kw)
+        self.d = self.pkg.Daemon(self.sock, **args)
+        self.rc_box = []
+        d, box = self.d, self.rc_box
+        self.t = threading.Thread(
+            target=lambda: box.append(d.serve_forever()), daemon=True
+        )
+        self.t.start()
+        deadline = time.monotonic() + 30
+        while self.pkg.client.daemon_alive(self.sock) is None:
+            if time.monotonic() > deadline or not self.t.is_alive():
+                pytest.fail(f"{self.pkg.name} daemon never ready: {self.logs}")
+            time.sleep(0.02)
+        return self.d
+
+    def stop(self):
+        if self.t is None:
+            return
+        self.pkg.client.request_shutdown(self.sock)
+        self.t.join(60)
+        assert not self.t.is_alive(), "daemon thread did not exit"
+        assert self.rc_box == [0], (self.rc_box, self.logs)
+        self.t = None
+
+    def kill(self):
+        """Stop without the shutdown flush: the warm tier is detached
+        first, so the records on disk are exactly what the continuous
+        spill had written, and the directory claim stays behind, as
+        after a SIGKILL (the next daemon of this process adopts it)."""
+        self.d.spill = None
+        self.d.sessions.spill = None
+        self.stop()
