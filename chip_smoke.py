@@ -152,7 +152,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the defaults, beside 13f's walls. d. a real request for another
    tenant arriving during a speculative re-plan of the second half of
    phase 3's plan, once in the run's host head and once in its chunk's
-   session: its answer equals in process, the speculative run is
+   session (the run is held at that point until the daemon's admission
+   hook has seen the request, so no wall-clock timing decides where it
+   lands): its answer equals in process, the speculative run is
    aborted; its queue wait printed. e. a ``-serve
    -serve-session-spill-dir`` process serves one request and is
    SIGKILLed; a new process on the same directory answers the next move
@@ -163,9 +165,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    -from-zk`` on the tree; watch lag and the watch and speculative runs'
    K1 launches (> 0) printed.
 
+15. Every reference flag on the card, on phase 3's cluster: a/b. phase
+   3's and 3b's flags through ``cli.run`` with ``-stats -metrics-json
+   -trace -explain -jax-profile``: the plan bytes of phases 3 and 3b, the
+   metrics line's schema, ``plan.stop_reason`` and move count, the
+   explain document's ``moves_emitted``, the lifecycle spans of the
+   trace; in the ``torch.profiler`` trace the kernel events of K1
+   (``score_blocks``) or B2 (``session_kernel``) inside the ``plan``
+   window must number the run's launches, and the device's idle share
+   of the window (1 - the union of kernel, copy and fill intervals over
+   the window) and the walls with and without the flags are printed. c.
+   fresh ``-no-daemon`` processes with ``-trace``, in turns with the
+   warm thread and without it (the warm daemon's latch set first): their
+   walls, and the first one's span breakdown (the warm thread's torch
+   import and CUDA context on its own track; parse, settle, encode,
+   session, emit) beside 13d's walls. d. ``python -m kafkabalancer_tpu_torch.prewarm -shapes
+   10000x100 -verify``, then a ``-serve -serve-prewarm=10000x100``
+   process: its warm seconds and its first request (14e's) against in
+   process, beside 14e's. e. ``-serve-stats`` and ``-metrics-prom=-``
+   against it: the text parses and its request counter equals the
+   requests sent. f. in a process of its own with ``nvcc.BUILD_DIR`` on
+   a copy of the cache, ``shard_score``'s library truncated: one rebuild
+   and phase 3's plan.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-14 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-15 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -1780,6 +1805,9 @@ CLIENT = (
 LOCAL_FALLBACKS = ("daemon_down", "handshake_mismatch", "frame_cap",
                    "declined", "transport_error", "daemon_wedged", "overload")
 CARD = ""
+# walls of fresh processes and first requests (13d, 14e), printed beside
+# phase 15's
+FRESH_WALLS = {}
 
 
 def start_client(args, served=True):
@@ -1978,6 +2006,7 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
                 args + ["-no-daemon"], f"fresh {key}", served=False)
             if out != want:
                 fail(f"fresh -no-daemon {key}: the plan differs")
+            FRESH_WALLS[f"13d {key}"] = wall
             log(f"serve 13d [{CARD}]: {key}: fresh -no-daemon process "
                 f"{wall} s, served client process {walls[key]} s")
 
@@ -2223,31 +2252,58 @@ def spec_loop(d, sock, path, flags, what, rounds, oracle):
 
 def spec_preempt(path, xla_plan, sock_dir):
     """14d: a real request for another tenant arrives while a speculative
-    re-plan of the second half of phase 3's plan is in flight: once 0.05
-    s after the run starts (in its host head: settle, encode) and once
-    0.05 s after its chunk has started (in the session on the card). The
-    chunk's start is observed by wrapping ``scan._run_chunk`` in this
-    process for the phase (the daemon runs in this process)."""
+    re-plan of the second half of phase 3's plan is in flight: once in
+    the run's host head (the run held at the entry of ``scan._run_chunk``,
+    before its chunk reaches the card) and once in its chunk's session
+    (held at the entry of ``scan.session``). The wall clock decides
+    nothing: the speculative (``serve-int-``) thread waits at its hold
+    point until the daemon's admission arrival hook
+    (``AdmissionController.on_arrival``, which preempts speculation) has
+    seen tenant B's request, and B is sent only once the run is held.
+    The daemon runs in this process, so both wraps are in place for the
+    phase."""
     import shutil
     import threading
 
     from kafkabalancer_tpu_torch.serve import client
     from kafkabalancer_tpu_torch.solvers import scan
 
-    chunk_started = threading.Event()
-    real_chunk = scan._run_chunk
+    hold = {"where": None}  # the hold point armed for this round
+    held = threading.Event()  # the speculative run waits at it
+    admitted = threading.Event()  # the admission hook saw B's request
+    stuck = []  # hold points that timed out
+    real_chunk, real_session = scan._run_chunk, scan.session
+
+    def wait_at(where):
+        if (hold["where"] == where
+                and threading.current_thread().name.startswith("serve-int-")
+                and not admitted.is_set()):
+            held.set()
+            if not admitted.wait(120):
+                stuck.append(where)
 
     def run_chunk(*a, **kw):
-        if threading.current_thread().name.startswith("serve-int-"):
-            chunk_started.set()
+        wait_at("host head")
         return real_chunk(*a, **kw)
+
+    def session(*a, **kw):
+        wait_at("chunk")
+        return real_session(*a, **kw)
 
     moves = len(json.loads(xla_plan)["partitions"])
     b_want = None
     sock = os.path.join(sock_dir, "p.sock")
     d, t, rc_box, logs = serving_daemon(sock, speculate=True)
     d._warm_done.wait(240)
-    scan._run_chunk = run_chunk
+    real_arrival = d._admission.on_arrival
+
+    def on_arrival():
+        real_arrival()  # the speculator's preemption first
+        if held.is_set():
+            admitted.set()
+
+    d._admission.on_arrival = on_arrival
+    scan._run_chunk, scan.session = run_chunk, session
     try:
         for k, where in enumerate(("host head", "chunk")):
             a_path = os.path.join("chiprun_out", f"smoke_preempt_a{k}.json")
@@ -2263,28 +2319,35 @@ def spec_preempt(path, xla_plan, sock_dir):
             while d.speculator.stats()["inflight"]:
                 time.sleep(0.01)
             aborted0 = d.speculator.stats()["aborted"]
+            held.clear()
+            admitted.clear()
+            hold["where"] = where
             rc, _a_out, _e, a_wall = run_cli(
                 a_args + [f"-serve-socket={sock}"])
             if rc != 0:
                 fail(f"14d: tenant A's request returned {rc}")
-            chunk_started.clear()
             deadline = time.monotonic() + 60
             while not d.speculator.stats()["inflight"]:
                 if time.monotonic() > deadline:
                     fail("14d: the speculative run never started")
                 time.sleep(0.0005)
             t_spec = time.perf_counter()
-            if where == "chunk" and not chunk_started.wait(60):
-                fail("14d: the speculative run never reached its chunk")
-            time.sleep(0.05)
+            if not held.wait(120):
+                fail(f"14d: the speculative run never reached its {where}")
             rc, b_out, _e, b_wall = run_cli(
                 b_args + [f"-serve-socket={sock}"])
             since = time.perf_counter() - t_spec - b_wall
+            if stuck:
+                fail(f"14d: the speculative run waited past 120 s at its "
+                     f"{stuck[0]}: the admission hook never saw B")
+            if not admitted.is_set():
+                fail("14d: tenant B's request was never admitted")
             if rc != 0 or b_out != b_want:
                 fail("14d: the preempting request's answer differs from "
                      "in process")
             while d.speculator.stats()["inflight"]:
                 time.sleep(0.01)
+            hold["where"] = None
             doc = client.fetch_stats(sock)
             st = doc["speculation"]
             spec_identity(st, "14d")
@@ -2294,11 +2357,14 @@ def spec_preempt(path, xla_plan, sock_dir):
             log(f"spec 14d [{CARD}]: tenant A served {moves // 2} of phase "
                 f"3's {moves} moves in {a_wall} s; a real request for "
                 f"tenant B arrived {since} s into the speculative re-plan of "
-                f"the rest (in its {where}): its answer equals in process, "
-                f"its wall {b_wall} s, its queue wait behind the "
-                f"speculative run {queue['max']} s; speculation {st}")
+                f"the rest (held in its {where} until B was admitted): its "
+                f"answer equals in process, its wall {b_wall} s, its queue "
+                f"wait behind the speculative run {queue['max']} s; "
+                f"speculation {st}")
     finally:
-        scan._run_chunk = real_chunk
+        scan._run_chunk, scan.session = real_chunk, real_session
+        d._admission.on_arrival = real_arrival
+        admitted.set()  # never leave a speculative run held
     stop_daemon(sock, d, t, rc_box, logs, 4, {"session_absent": 4},
                 "(daemon 14d)")
 
@@ -2344,6 +2410,7 @@ def spec_warm_tier(path, sock_dir):
             e_args + [f"-serve-socket={sock}"], "14e first request")
         if out1 != want1:
             fail("14e: the first served plan differs from in process")
+        FRESH_WALLS["14e first request"] = wall1
         doc1 = client.fetch_stats(sock)
         if doc1["paging"]["spills"] < 1:
             fail(f"14e: nothing spilled: {doc1['paging']}")
@@ -2531,6 +2598,378 @@ def phase_spec(path, xla_plan, loop13_walls):
     return out
 
 
+# phase 15: every reference flag on the card — the telemetry exporters,
+# -explain, the device profiler (-jax-profile, here torch.profiler), the
+# fresh process's span breakdown, prewarm and -serve-prewarm, the scrape
+# verbs and the nvcc cache's rebuild of a truncated library, on phase 3's
+# cluster
+MAIN_FLAGS = ["-fused", "-fused-batch=100", f"-max-reassign={MAIN_REASSIGN}",
+              "-min-unbalance=1e-7"]
+# the kernels' function names as the profiler reports them
+K1_NAME, B2_NAME = "score_blocks", "session_kernel"
+# device activity inside the plan window: kernels, copies and fills
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_window(pdir, kernel):
+    """Read the one Chrome trace ``-jax-profile`` wrote into ``pdir``:
+    ``(kernel events named ``kernel`` inside the plan window, the window
+    in us, the device's idle share of it, the CUDA event count)``. The
+    idle share is 1 - (union of kernel, copy and fill intervals) / window.
+    Fails when the trace holds no CUDA activity at all."""
+    files = os.listdir(pdir)
+    if len(files) != 1:
+        fail(f"-jax-profile wrote {files} into {pdir}, not one trace")
+    with open(os.path.join(pdir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    plans = [ev for ev in events if ev.get("name") == "plan"
+             and ev.get("cat") == "user_annotation" and ev.get("ph") == "X"]
+    if len(plans) != 1:
+        fail(f"the profile holds {len(plans)} plan ranges, not one")
+    w0 = float(plans[0]["ts"])
+    w1 = w0 + float(plans[0]["dur"])
+    dev_evs = [ev for ev in events if ev.get("ph") == "X"
+               and ev.get("cat") in DEVICE_CATS]
+    if not dev_evs:
+        fail("the profiler recorded no CUDA activity on the card")
+    inside = [ev for ev in dev_evs
+              if w0 <= float(ev["ts"]) and float(ev["ts"]) < w1]
+    named = [ev for ev in inside if ev.get("cat") == "kernel"
+             and kernel in ev.get("name", "")]
+    spans = sorted((max(w0, float(ev["ts"])),
+                    min(w1, float(ev["ts"]) + float(ev["dur"])))
+                   for ev in inside)
+    busy, end = 0.0, w0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return len(named), w1 - w0, 1.0 - busy / (w1 - w0), len(dev_evs)
+
+
+def telemetry_run(path, flags, label, tag, counter, want_plan, work):
+    """15a/15b: ``flags`` through ``cli.run`` on phase 3's cluster without
+    and then with every telemetry flag, the files written under ``work``
+    (the profile runs to tens of MB); returns the checks' readings."""
+    out_dir = os.path.join(work, f"15{tag}")
+    os.makedirs(out_dir)
+    mpath = os.path.join(out_dir, "metrics.json")
+    tpath = os.path.join(out_dir, "trace.json")
+    epath = os.path.join(out_dir, "explain.json")
+    pdir = os.path.join(out_dir, "profile")
+    base = ["-input-json", "-input", path] + flags + ["-no-daemon"]
+    rc, out, err, wall_plain = run_cli(base)
+    if rc != 0 or out != want_plan:
+        fail(f"15{tag}: {label} without telemetry: rc {rc} or another plan")
+    counter.launches = 0
+    rc, out, err, wall = run_cli(base + [
+        "-stats", f"-metrics-json={mpath}", f"-trace={tpath}",
+        f"-explain={epath}", f"-jax-profile={pdir}"])
+    launches = counter.launches
+    if rc != 0:
+        fail(f"15{tag}: {label} with telemetry returned {rc}: {err[-2000:]}")
+    if out != want_plan:
+        fail(f"15{tag}: the telemetry flags changed the plan bytes")
+    moves = len(json.loads(out)["partitions"])
+    with open(mpath) as fh:
+        metrics = json.load(fh)
+    if (metrics.get("schema") != "kafkabalancer-tpu.metrics/1"
+            or "plan.stop_reason" not in metrics["gauges"]
+            or metrics["counters"].get("cli.changes_written") != moves):
+        fail(f"15{tag}: the metrics line is not the schema's, or lacks "
+             f"plan.stop_reason or the move count: {metrics['gauges']} "
+             f"{metrics['counters']}")
+    with open(epath) as fh:
+        explain = json.load(fh)
+    if explain.get("moves_emitted") != moves:
+        fail(f"15{tag}: the explain document's moves_emitted "
+             f"{explain.get('moves_emitted')} != the plan's {moves} moves")
+    with open(tpath) as fh:
+        names = {ev["name"] for ev in json.load(fh)["traceEvents"]
+                 if ev.get("ph") == "X"}
+    if not {"settle", "tensorize", "plan", "emit"} <= names:
+        fail(f"15{tag}: the trace lacks a lifecycle span: {sorted(names)}")
+    if "invocation telemetry (rc=0)" not in err:
+        fail(f"15{tag}: no -stats summary on stderr")
+    kernel = K1_NAME if counter.__name__ == "shard_score" else B2_NAME
+    n_events, window_us, idle, n_dev = profile_window(pdir, kernel)
+    if n_events != launches or launches <= 0:
+        fail(f"15{tag}: {n_events} {kernel} kernel events in the plan window, "
+             f"the run made {launches} {counter.__name__} launches")
+    log(f"telemetry 15{tag} [{CARD}]: {label}: plan equals phase "
+        f"{'3' if tag == 'a' else '3b'}'s ({moves} moves, stop reason "
+        f"{metrics['gauges']['plan.stop_reason']}, explain moves_emitted "
+        f"{explain['moves_emitted']}); {launches} {counter.__name__} launches "
+        f"= {n_events} {kernel} events in the profile's plan window "
+        f"({window_us / 1e3} ms, {n_dev} CUDA events in the trace); device "
+        f"idle share of the window {idle}; wall {wall_plain} s without "
+        f"telemetry, {wall} s with -stats -metrics-json -trace -explain "
+        f"-jax-profile")
+    return dict(launches=launches, idle=idle, window_ms=window_us / 1e3,
+                wall=wall, wall_plain=wall_plain)
+
+
+def span_breakdown(tpath):
+    """``{(thread, span): (start s, seconds)}`` of a ``-trace`` file, the
+    first occurrence of each, and the end of the last span in s."""
+    with open(tpath) as fh:
+        events = json.load(fh)["traceEvents"]
+    threads = {ev["tid"]: ev["args"]["name"] for ev in events
+               if ev.get("ph") == "M" and ev.get("name") == "thread_name"}
+    spans, end = {}, 0.0
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        key = (threads.get(ev["tid"], str(ev["tid"])), ev["name"])
+        spans.setdefault(key, (ev["ts"] / 1e6, ev["dur"] / 1e6))
+        end = max(end, (ev["ts"] + ev["dur"]) / 1e6)
+    return spans, end
+
+
+# 15c: a fresh process without the warm thread — the latch a warm daemon
+# sets (coldstart.mark_process_warm) set before the CLI runs
+NO_WARM = (
+    "import sys\n"
+    "from kafkabalancer_tpu_torch.ops import coldstart\n"
+    "coldstart.mark_process_warm()\n"
+    "from kafkabalancer_tpu_torch.cli import main\n"
+    "main()\n"
+)
+
+
+def phase_fresh_process(path, xla_plan, work):
+    """15c: fresh ``-no-daemon`` processes with phase 3's flags and
+    ``-trace``, in turns with the warm thread and without it (four in
+    all): their walls, and the first one's span breakdown with the warm
+    thread's spans on their own track."""
+    walls = {"with": [], "without": []}
+    for k, mode in enumerate(("with", "without", "with", "without")):
+        tpath = os.path.join(work, f"15c_trace_{k}.json")
+        args = (["-input-json", "-input", path] + MAIN_FLAGS
+                + ["-no-daemon", f"-trace={tpath}"])
+        if mode == "with":
+            rc, out, err, wall, _rep = run_client(
+                args, f"15c fresh process {k}", served=False)
+        else:
+            t0 = time.perf_counter()
+            rc, out, err, wall, _rep = finish_client(
+                subprocess.Popen([sys.executable, "-c", NO_WARM] + args,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+                t0, f"15c fresh process {k} without the warm thread")
+        if out != xla_plan:
+            fail(f"15c: fresh process {k}'s plan differs from phase 3's")
+        spans, end = span_breakdown(tpath)
+        warm_spans = [key for key in spans if key[0] == "coldstart-warm"]
+        if bool(warm_spans) != (mode == "with"):
+            fail(f"15c: fresh process {k} ({mode} the warm thread) traced "
+                 f"warm-thread spans {warm_spans}")
+        walls[mode].append(wall)
+        if k == 0:
+            first, first_end, first_wall = spans, end, wall
+    want = [("coldstart-warm", "coldstart.torch_import"),
+            ("coldstart-warm", "coldstart.cuda_context"),
+            ("MainThread", "parse_input"), ("MainThread", "resolve_device"),
+            ("MainThread", "settle"), ("MainThread", "tensorize"),
+            ("MainThread", "solver.dispatch_chunk"), ("MainThread", "emit")]
+    missing = [key for key in want if key not in first]
+    if missing:
+        fail(f"15c: the fresh process's trace lacks {missing}")
+    parts = "; ".join(
+        f"{name} ({thread}) at {first[(thread, name)][0]} s for "
+        f"{first[(thread, name)][1]} s" for thread, name in want)
+    log(f"telemetry 15c [{CARD}]: a fresh -no-daemon process planned phase "
+        f"3's plan in {first_wall} s (wall, Python start included); its "
+        f"spans, from the tracer's start: {parts}; the last span ends at "
+        f"{first_end} s, so {first_wall - first_end} s of the wall is "
+        f"before the tracer starts (Python start, the package import) or "
+        f"after the last span (exit, the warm thread's join); beside phase "
+        f"13d's fresh -no-daemon walls "
+        f"{ {k: v for k, v in FRESH_WALLS.items() if k.startswith('13d')} }")
+    log(f"telemetry 15c [{CARD}]: fresh -no-daemon walls in turns, with the "
+        f"warm thread {walls['with']} s, without it {walls['without']} s")
+    return dict(wall=first_wall, walls=walls,
+                spans={f"{t}/{n}": v for (t, n), v in first.items()
+                       if (t, n) in want})
+
+
+def phase_prewarm(path, sock_dir):
+    """15d-e: ``python -m kafkabalancer_tpu_torch.prewarm -shapes 10000x100
+    -verify``, then a ``-serve -serve-prewarm=10000x100`` process: its warm
+    seconds and its first request (14e's request: the deployment loop's
+    ``-max-reassign=1``) against in process; then ``-serve-stats`` and
+    ``-metrics-prom=-`` against it."""
+    import re
+    import shutil
+
+    from kafkabalancer_tpu_torch.serve import client
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kafkabalancer_tpu_torch.prewarm", "-shapes",
+         "10000x100", "-verify"], capture_output=True, text=True, timeout=600)
+    pre_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"15d: prewarm exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (doc["kernels"], doc["failed"], doc["verified"]) != (2, 0, 4):
+        fail(f"15d: prewarm did not load and verify both kernels and both "
+             f"sessions: {doc}")
+    log(f"telemetry 15d [{CARD}]: prewarm -shapes 10000x100 -verify in "
+        f"{pre_wall} s: "
+        + ", ".join(f"{k.get('kernel') or k['name']} {k['status']}"
+                    + (f" {k['seconds']} s" if 'seconds' in k else "")
+                    + f" verified={k.get('verified')}" for k in doc["keys"]))
+
+    sock = os.path.join(sock_dir, "pw.sock")
+    d_path = os.path.join("chiprun_out", "smoke_prewarm_cluster.json")
+    shutil.copyfile(path, d_path)
+    d_args = ["-input-json", "-input", d_path] + SPEC_FLAGS
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kafkabalancer_tpu_torch", "-serve",
+         f"-serve-socket={sock}", "-serve-prewarm=10000x100",
+         "-serve-idle-timeout=300"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        _rc, want, _e, _w = run_cli(d_args + ["-no-daemon"])
+        while True:
+            hello = client.daemon_alive(sock)
+            if hello is not None and not hello.get("warming"):
+                break
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                proc.kill()
+                fail(f"15d: the -serve-prewarm process never warmed: "
+                     f"{proc.communicate()[1][-2000:]}")
+            time.sleep(0.05)
+        warm = time.perf_counter() - t0
+        _rc, out, _e, wall1, rep = run_client(
+            d_args + [f"-serve-socket={sock}"], "15d first request")
+        if out != want:
+            fail("15d: the prewarmed daemon's first plan differs from in "
+                 "process")
+        sent = 1
+        rc, stats_text, err, stats_wall, _r = run_client(
+            ["-serve-stats", f"-serve-socket={sock}"], "15e -serve-stats",
+            served=False)
+        rc, prom, err, prom_wall, _r = run_client(
+            ["-metrics-prom=-", f"-serve-socket={sock}"], "15e -metrics-prom",
+            served=False)
+        series = {}
+        for line in prom.splitlines():
+            if not line or line.startswith("#"):
+                continue
+            m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$',
+                         line)
+            if m is None:
+                fail(f"15e: not a Prometheus text line: {line!r}")
+            series[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+        if series.get("kafkabalancer_tpu_requests") != sent:
+            fail(f"15e: the request counter reads "
+                 f"{series.get('kafkabalancer_tpu_requests')}, {sent} sent")
+        if f"  requests: {sent} " not in stats_text:
+            fail(f"15e: -serve-stats does not show {sent} request(s)")
+        if not client.request_shutdown(sock):
+            fail("15d: the shutdown op was not acknowledged")
+        _o, err = proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            fail(f"15d: the -serve-prewarm process exited {proc.returncode}")
+        lines = [x.split("serve: ")[-1] for x in err.splitlines()
+                 if "serve: prewarm" in x or "serve: warm in" in x]
+        log(f"telemetry 15d [{CARD}]: a -serve -serve-prewarm=10000x100 "
+            f"process answered warm {warm} s after its start ({lines}); its "
+            f"first request (the -max-reassign=1 loop's, as 14e's) equals in "
+            f"process, client wall {wall1} s (edge rung {rep['rung']}), "
+            f"beside 14e's first request of an un-prewarmed -serve "
+            f"{FRESH_WALLS.get('14e first request')} s")
+        log(f"telemetry 15e [{CARD}]: -serve-stats ({stats_wall} s) and "
+            f"-metrics-prom=- ({prom_wall} s, {len(series)} series, parsed) "
+            f"against it; kafkabalancer_tpu_requests "
+            f"{series['kafkabalancer_tpu_requests']} = requests sent {sent}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+    return dict(prewarm_wall=pre_wall, warm=warm, first=wall1)
+
+
+# 15f: a process of its own points nvcc.BUILD_DIR at a copy of the build
+# cache, truncates shard_score's library there and plans phase 3's flags
+REBUILD = (
+    "import io, json, os, shutil, sys\n"
+    "from kafkabalancer_tpu_torch.ops import nvcc\n"
+    "shutil.copytree(nvcc.BUILD_DIR, sys.argv[1])\n"
+    "nvcc.BUILD_DIR = sys.argv[1]\n"
+    "lib = nvcc.library_path('shard_score.cu')\n"
+    "size = os.path.getsize(lib)\n"
+    "with open(lib, 'r+b') as fh:\n"
+    "    fh.truncate(size // 8)\n"
+    "from kafkabalancer_tpu_torch import cli\n"
+    "out, err = io.StringIO(), io.StringIO()\n"
+    "rc = cli.run(io.StringIO(''), out, err, ['kafkabalancer'] + sys.argv[2:])\n"
+    "print(json.dumps({'rc': rc, 'rebuilds': nvcc.rebuilds,\n"
+    "                  'build_s': nvcc.build_seconds, 'size': size,\n"
+    "                  'rebuilt_size': os.path.getsize(lib),\n"
+    "                  'err': err.getvalue()[-2000:]}))\n"
+    "sys.stdout.write(out.getvalue())\n"
+)
+
+
+def phase_rebuild(path, xla_plan, sock_dir):
+    """15f: a truncated cached library costs one rebuild and the same
+    plan."""
+    cache = os.path.join(sock_dir, "cache")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", REBUILD, cache, "-input-json", "-input", path]
+        + MAIN_FLAGS + ["-no-daemon"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"15f: the rebuild process failed: {proc.stderr[-2000:]}")
+    head, _, plan = proc.stdout.partition("\n")
+    rep = json.loads(head)
+    if rep["rc"] != 0 or rep["rebuilds"] != {"shard_score.cu": 1}:
+        fail(f"15f: not exactly one rebuild of shard_score: {rep}")
+    if plan != xla_plan:
+        fail("15f: the plan after the rebuild differs from phase 3's")
+    log(f"telemetry 15f [{CARD}]: shard_score's cached library truncated "
+        f"from {rep['size']} bytes to 1/8: one rebuild "
+        f"({rep['build_s'].get('shard_score.cu')} s of nvcc, "
+        f"{rep['rebuilt_size']} bytes), phase 3's plan, process wall {wall} s")
+    return wall
+
+
+def phase_telemetry(dev, path, xla_plan, pallas_plan):
+    """Phase 15 (see the module docstring); returns the launches of 15a
+    and 15b by kernel."""
+    import shutil
+    import tempfile
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    t_phase = time.perf_counter()
+    out = {}
+    work = tempfile.mkdtemp(prefix="kbt-smoke15-")
+    try:
+        out["15a"] = telemetry_run(
+            path, MAIN_FLAGS, "-fused -fused-batch=100", "a", sk.shard_score,
+            xla_plan, work)
+        out["15b"] = telemetry_run(
+            path, MAIN_FLAGS + ["-fused-engine=pallas"],
+            "-fused -fused-engine=pallas", "b", ps.pallas_session,
+            pallas_plan, work)
+        out["15c"] = phase_fresh_process(path, xla_plan, work)
+        out["15d"] = phase_prewarm(path, work)
+        out["15f"] = phase_rebuild(path, xla_plan, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"telemetry: phase 15 took {time.perf_counter() - t_phase} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2629,6 +3068,11 @@ def main() -> int:
     spec_made = phase_spec(cluster_path, xla_plan, loop13_walls)
     done(14)
 
+    # phase 15: the telemetry exporters, -explain, the device profiler, a
+    # fresh process's spans, prewarm, the scrape verbs, the cache rebuild
+    tel = phase_telemetry(dev, cluster_path, xla_plan, pallas_plan)
+    done(15)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -2663,6 +3107,8 @@ def main() -> int:
                 "shard_score", 0),
             "14f: speculative runs under -watch": spec_made["14f"][
                 "spec"].get("shard_score", 0),
+            "15a: -fused -fused-batch=100 with every telemetry flag and "
+            "-jax-profile": tel["15a"]["launches"],
         },
         "colocation_variant": k1_colo,
         "shard_shapes": shard_times,
@@ -2686,6 +3132,8 @@ def main() -> int:
             "13c: served -fused -fused-engine=pallas": serve_launches["pallas"],
             "14b: speculative runs of the -fused-engine=pallas loop":
                 spec_made["14b"].get("pallas_session", 0),
+            "15b: -fused-engine=pallas with every telemetry flag and "
+            "-jax-profile": tel["15b"]["launches"],
         },
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],

@@ -41,9 +41,18 @@ evicted sessions on disk with ``-serve-session-spill-dir``, and with
 ``-watch`` plans from ZooKeeper itself; the forwarding client keeps its
 edge cache beside the socket (``-edge-cache``).
 
-Every other flag of the reference is parsed; a flag whose feature is not
-ported yet exits 3 with a one-line message naming its ROADMAP.md item
-when it is given a non-default value.
+Every flag of the reference is parsed and runs. The telemetry flags
+are the reference's: ``-stats`` (a human summary on stderr),
+``-metrics-json`` (one schema-versioned JSON line), ``-trace`` (a Chrome
+trace-event timeline, merged with the daemon's spans on a served
+invocation), ``-explain`` (the plan-explanation document after the plan)
+and ``-jax-profile`` (here a ``torch.profiler`` Chrome trace of CPU and
+CUDA activity over the planning region, written into the directory; it
+never forwards); ``-serve-stats`` and ``-metrics-prom`` scrape a live
+daemon. ``-serve-prewarm`` runs ``prewarm.warm_store`` on the daemon's
+warm thread. A fresh ``-fused``, ``-solver=tpu`` or ``-solver=beam``
+process overlaps the torch import and the CUDA context with its host
+work on a bounded warm thread (``ops/coldstart.py``).
 
 State threading: the reference carries moves across ``Balance`` calls via
 slice aliasing (SURVEY.md §2.2); accepted changes are applied to the live
@@ -78,6 +87,10 @@ from kafkabalancer_tpu_torch.models.partition import empty_partition_list
 from kafkabalancer_tpu_torch.obs import convergence
 from kafkabalancer_tpu_torch.utils import BufferingWriter, FlagSet, Logger
 from kafkabalancer_tpu_torch.utils.flags import go_atoi
+
+# the file ``-jax-profile=<dir>`` writes into the directory; the process
+# id keeps concurrent profiled runs into one directory apart
+_PROFILE_FILE = "kafkabalancer-{pid}.trace.json"
 
 
 def _fmt_cfg(cfg: RebalanceConfig) -> str:
@@ -120,33 +133,166 @@ def apply_assignment(pl: PartitionList, changed: Partition) -> Partition:
 
 
 def _apply_replicas(p: Partition, changed: Partition) -> Partition:
-    """The one mutation point for per-move and repair changes; a daemon's
-    resident session (serve/sessions.py) mirrors each one through the
+    """The one mutation point for per-move and repair changes, and the
+    ``-explain`` provenance hook: with a convergence recorder installed on
+    this thread the old and new replica lists are recorded around the
+    write (O(1); the scoring happens at finalize). A daemon's resident
+    session (serve/sessions.py) mirrors each change through the
     convergence mutation tap."""
+    rec = convergence.recorder()
+    old = list(p.replicas) if rec is not None else None
     p.replicas[:] = changed.replicas
+    if rec is not None:
+        rec.record_change(p, old, list(p.replicas), origin="step")
     tap = convergence.mutation_tap()
     if tap is not None:
         tap.change(p)
     return p
 
 
-# the reference's flags whose feature this package does not have yet,
-# with the ROADMAP.md item that ports each: (name, kind, default, usage,
-# item). They are parsed like the reference's; given a non-default value,
-# each one exits 3 before any input is read.
-_EXPORTERS = "A1 (telemetry exporters)"
-_NOT_PORTED = [
-    ("jax-profile", "string", "", "Device trace directory", "A9 (tooling)"),
-    ("stats", "bool", False, "Invocation telemetry summary", _EXPORTERS),
-    ("metrics-json", "string", "", "Invocation metrics JSON path", _EXPORTERS),
-    ("trace", "string", "", "Perfetto host timeline path", _EXPORTERS),
-    ("explain", "string", "", "Plan-explanation document path", _EXPORTERS),
-    ("serve-prewarm", "string", "", "Daemon prewarm shape grid",
-     "A8 (cold start)"),
-    ("serve-stats", "bool", False, "Scrape a daemon's telemetry", _EXPORTERS),
-    ("metrics-prom", "string", "", "Scrape a daemon as Prometheus text",
-     _EXPORTERS),
-]
+class _TelemetryFlags:
+    """Export targets of the ``-stats``/``-metrics-json``/``-trace`` flag
+    trio, filled by ``_run_impl`` once the flags parse, so that the
+    exporter tail in :func:`run` fires on every exit path (the exit-3 and
+    exit-4 invocations are the ones an operator debugs).
+
+    ``attrs`` carries this invocation's attribution gauges, overlaid at
+    export time: in the multi-lane daemon's shared-registry mode a
+    concurrent request's gauge writes would otherwise clobber this
+    request's between stamping and export. ``refresh`` (when the caller
+    gives one) is called at export time and its result overlays
+    ``attrs``: the daemon re-reads the lane's device memory as the
+    request ends."""
+
+    __slots__ = ("stats", "metrics_path", "trace_path", "attrs", "refresh")
+
+    def __init__(self) -> None:
+        self.stats = False
+        self.metrics_path = ""
+        self.trace_path = ""
+        self.attrs: Dict[str, Any] = {}
+        self.refresh: Optional[Callable[[], Dict[str, Any]]] = None
+
+    def any(self) -> bool:
+        return bool(self.stats or self.metrics_path or self.trace_path)
+
+
+def _export_telemetry(
+    tel: _TelemetryFlags, rc: int, o, be: BufferingWriter, logger: Logger
+) -> None:
+    """The exporter tail; a telemetry failure is logged and never masks
+    ``rc`` (the exit-code contract outranks observability)."""
+    if not tel.any():
+        return
+    from kafkabalancer_tpu_torch.obs import export as obs_export
+
+    if tel.refresh is not None:
+        try:
+            tel.attrs = {**tel.attrs, **tel.refresh()}
+        except Exception as exc:
+            logger.printf(f"failed refreshing attribution gauges: {exc}")
+    if tel.stats:
+        try:
+            be.write(obs_export.render_stats(obs.REGISTRY, obs.tracer, rc=rc))
+        except Exception as exc:
+            logger.printf(f"failed rendering -stats summary: {exc}")
+    if tel.metrics_path:
+        try:
+            payload = obs_export.metrics_payload(obs.REGISTRY, obs.tracer, rc=rc)
+            if tel.attrs:
+                # this request's attribution wins over a concurrent
+                # request's writes to the shared registry
+                payload["gauges"] = {**payload.get("gauges", {}), **tel.attrs}
+            obs_export.write_metrics_json(tel.metrics_path, payload, o)
+        except Exception as exc:
+            logger.printf(
+                f"failed writing metrics JSON to {tel.metrics_path}: {exc}"
+            )
+    if tel.trace_path:
+        try:
+            obs_export.write_trace(tel.trace_path, obs.tracer)
+        except Exception as exc:
+            logger.printf(f"failed writing trace to {tel.trace_path}: {exc}")
+
+
+class _DeviceProfile:
+    """``-jax-profile <dir>`` in this package: ``torch.profiler`` over the
+    planning region (CPU activity, and CUDA activity when a card is
+    present), with the region itself as one ``plan`` range
+    (``record_function``), so the trace carries its own window. One
+    Chrome-trace JSON file is written into the directory when the region
+    ends (:data:`_PROFILE_FILE`)."""
+
+    def __init__(self, directory: str) -> None:
+        self.directory = directory
+        self.path = os.path.join(
+            directory, _PROFILE_FILE.format(pid=os.getpid())
+        )
+        self._prof: Any = None
+        self._range: Any = None
+
+    def start(self) -> None:
+        """Create the directory (``OSError`` when it cannot be) and start
+        profiling."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        os.makedirs(self.directory, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+        self._range = record_function("plan")
+        self._range.__enter__()
+
+    def stop(self, log: Callable[[str], None]) -> None:
+        """End the range and the profile and write the trace; a failure is
+        logged, never raised (the plan outranks its profile)."""
+        import torch
+
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return
+        try:
+            self._range.__exit__(None, None, None)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(self.path)
+        except Exception as exc:
+            log(f"failed writing device profile to {self.path}: {exc}")
+
+
+# live warm threads awaiting their bounded exit-time join. One atexit
+# registration for the whole process: the planning daemon runs many
+# invocations per process, and one atexit entry per request would grow
+# without bound (dead threads are dropped as new ones register)
+_warm_threads: List[Any] = []
+_warm_atexit_registered = False
+# seconds the exit-time join waits for each warm thread: a healthy warm
+# (the torch import, the CUDA context) ends in seconds; past this the
+# thread is presumed stuck in a driver call, where teardown is safe.
+WARM_JOIN_S = 30.0
+
+
+def _track_warm_thread(t: Any) -> None:
+    global _warm_atexit_registered
+    _warm_threads[:] = [w for w in _warm_threads if w.is_alive()]
+    _warm_threads.append(t)
+    if not _warm_atexit_registered:
+        _warm_atexit_registered = True
+        import atexit
+
+        atexit.register(_join_warm)
+
+
+def _join_warm(timeout: Optional[float] = None) -> None:
+    """Join every live warm thread, each for at most ``timeout`` seconds
+    (default :data:`WARM_JOIN_S`)."""
+    for w in list(_warm_threads):
+        w.join(WARM_JOIN_S if timeout is None else timeout)
+
 
 # flags that describe THIS process (daemon wiring, local profiling) and
 # do not travel with a forwarded request. "input" rides as inlined
@@ -165,16 +311,22 @@ _NO_FORWARD_FLAGS = frozenset((
     "serve-stats", "serve-stats-json", "serve-dump-trace", "metrics-prom",
     "serve-session", "serve-no-session", "edge-cache", "no-edge-cache",
     "no-daemon", "help", "pprof", "pprof-path", "jax-profile", "input",
+    # -trace is answered by the client on a forwarded invocation: the
+    # daemon's reply footer (its span subtree) merges with the client's
+    # own spans into one document (obs/export.py merged_trace)
     "trace",
 ))
+# flags whose value names a path the daemon writes: made absolute against
+# the client's working directory ("-" = stdout stays as it is)
+_PATH_VALUE_FLAGS = frozenset(("metrics-json", "explain"))
+
 
 def _forward_argv(f: FlagSet) -> List[str]:
     """The canonical argv for one forwarded invocation: every non-default
     parsed flag as ``-name=value`` (semantics, not raw text — duplicate
-    flags already collapsed, parse errors already surfaced locally), and
-    ``-no-daemon`` pinned first so the daemon never re-forwards. (The
-    reference also makes the paths of ``-metrics-json`` and ``-explain``
-    absolute; neither flag is in this package yet, ROADMAP.md A1.)"""
+    flags already collapsed, parse errors already surfaced locally), path
+    values made absolute, and ``-no-daemon`` pinned first so the daemon
+    never re-forwards."""
     argv = ["-no-daemon=true"]
     for name in sorted(f.flags):
         if name in _NO_FORWARD_FLAGS:
@@ -183,6 +335,12 @@ def _forward_argv(f: FlagSet) -> List[str]:
         if fl.value == fl.default:
             continue
         v: Any = fl.value
+        if (
+            name in _PATH_VALUE_FLAGS
+            and isinstance(v, str)
+            and v not in ("", "-")
+        ):
+            v = os.path.abspath(v)
         if fl.kind == "bool":
             v = "true" if v else "false"
         argv.append(f"-{name}={v}")
@@ -204,31 +362,42 @@ def _write_text(o, path: str, text: str) -> bool:
 
 
 def _run_scrape(
-    o, log, socket_flag: str, stats_json: bool, dump_path: str,
+    o, log, socket_flag: str,
+    stats: bool, stats_json: bool, dump_path: str, prom_path: str,
 ) -> int:
-    """The live-daemon scrape verbs: ``-serve-stats-json`` (one-line JSON
-    of the daemon's ``stats`` document) and ``-serve-dump-trace`` (the
-    flight recorder's Perfetto export). Pure protocol clients
-    (serve/client.py): no torch, no numpy, and they never pause
-    planning. Exit 3 when no live daemon of this package answers; exit 4
-    when the daemon answered but the local output path is unwritable."""
+    """The live-daemon scrape verbs: ``-serve-stats`` and
+    ``-serve-stats-json`` (human text and one-line JSON of the daemon's
+    ``stats`` document), ``-metrics-prom`` (Prometheus text exposition of
+    the same scrape) and ``-serve-dump-trace`` (the flight recorder's
+    Perfetto export). Pure protocol clients (serve/client.py,
+    obs/export.py): no torch, no numpy, and they never pause planning.
+    Exit 3 when no live daemon of this package answers; exit 4 when the
+    daemon answered but the local output path is unwritable."""
     import json as json_mod
 
+    from kafkabalancer_tpu_torch.obs import export as obs_export
     from kafkabalancer_tpu_torch.serve import client as serve_client
     from kafkabalancer_tpu_torch.serve.protocol import resolve_socket_path
 
     sock = resolve_socket_path(socket_flag)
-    if stats_json:
+    if stats or stats_json or prom_path:
         doc = serve_client.fetch_stats(sock)
         if doc is None:
             log(f"no live daemon on {sock}")
             return 3
-        o.write(
-            json_mod.dumps(
-                doc, sort_keys=True, separators=(",", ":"), default=str,
+        if stats_json:
+            o.write(
+                json_mod.dumps(
+                    doc, sort_keys=True, separators=(",", ":"), default=str,
+                )
+                + "\n"
             )
-            + "\n"
-        )
+        if stats:
+            o.write(obs_export.render_serve_stats(doc))
+        if prom_path:
+            if not _write_text(o, prom_path, obs_export.render_prometheus(doc)):
+                log(f"failed writing Prometheus exposition to {prom_path}")
+                return 4
     if dump_path:
         resp = serve_client.fetch_trace(sock)
         if resp is None or not isinstance(resp.get("trace"), dict):
@@ -243,10 +412,15 @@ def _run_scrape(
     return 0
 
 
-def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
+def _forward(
+    i, f: FlagSet, log: Callable[[str], None], trace_path: str = "",
+) -> tuple:
     """Forward one parsed invocation to a live daemon (serve/client.py).
     Returns ``(served, stdin_text)``: the daemon's result or None (plan
-    in process), and the input read from ``i`` when it was read.
+    in process), and the input read from ``i`` when it was read. With
+    ``trace_path`` (``-trace``), a served invocation writes one merged
+    document there: the client's spans and the daemon's reply-footer
+    subtree, aligned by the handshake's clock-offset estimate.
 
     The edge residency cache (serve/edge_cache.py, on unless
     ``-no-edge-cache``/``-edge-cache=false``/``-serve-no-session``): the
@@ -428,6 +602,13 @@ def _forward(i, f: FlagSet, log: Callable[[str], None]) -> tuple:
         else:
             obs.metrics.count("cli.served")
             edge_rec.finish(served.trace)
+    if served is not None and trace_path:
+        try:
+            from kafkabalancer_tpu_torch.obs import export as obs_export
+
+            obs_export.write_merged_trace(trace_path, obs.tracer, edge_rec)
+        except Exception as exc:
+            log(f"failed writing merged trace to {trace_path}: {exc}")
     return served, stdin_text
 
 
@@ -451,37 +632,55 @@ def run(
     The planning daemon (serve/daemon.py) runs each request through this
     function with three more arguments. ``attrs`` seeds the registry with
     the request's attribution gauges (``served``, ``serve.*``);
-    ``refresh_attrs`` is called when the invocation ends and its gauges
-    overlay those (the lane's device memory as the request ends).
+    ``refresh_attrs`` is called when the telemetry is exported and its
+    gauges overlay those (the lane's device memory as the request ends).
     ``session`` is the daemon's resident-session seam
     (serve/sessions.py ``PlanSessionContext``): when it supplies a
     resident partition list, input parsing is skipped; when the CLI
-    parses, the session snapshots the raw rows right after the parse."""
+    parses, the session snapshots the raw rows right after the parse.
+
+    The telemetry exporters (``-stats``, ``-metrics-json``, ``-trace``)
+    run when the invocation ends, on every exit path."""
     be = BufferingWriter(e)
     logger = Logger(be)
+    tel = _TelemetryFlags()
     obs.begin_invocation()
-    for k, v in (attrs or {}).items():
-        obs.metrics.gauge(k, v)
+    if attrs:
+        tel.attrs = dict(attrs)
+        for k, v in attrs.items():
+            obs.metrics.gauge(k, v)
+    tel.refresh = refresh_attrs
+    rc = -1  # an uncaught exception exports rc=-1
     try:
-        return _run_impl(
-            i, o, be, logger, args, device, shard_devices, session
+        rc = _run_impl(
+            i, o, be, logger, tel, args, device, shard_devices, session
         )
+        return rc
     finally:
-        if refresh_attrs is not None:
-            try:
-                for k, v in refresh_attrs().items():
-                    obs.metrics.gauge(k, v)
-            except Exception as exc:
-                logger.printf(f"failed refreshing attribution gauges: {exc}")
-        be.close()
+        try:
+            _export_telemetry(tel, rc, o, be, logger)
+        except Exception as exc:
+            # the per-exporter failures are logged inside; this guards the
+            # obs.export import: a telemetry failure must neither mask rc
+            # nor skip the stderr flush
+            logger.printf(f"telemetry export failed: {exc}")
+        finally:
+            if tel.any():
+                # shared-registry bookkeeping: the last tracing request
+                # to finish returns the tracer to its no-op fast path
+                obs.end_invocation()
+            be.close()
 
 
 def _run_impl(
-    i, o, be: BufferingWriter, logger: Logger, args: List[str], device: Any,
-    shard_devices: Optional[List[Any]], session: Optional[Any],
+    i, o, be: BufferingWriter, logger: Logger, tel: _TelemetryFlags,
+    args: List[str], device: Any, shard_devices: Optional[List[Any]],
+    session: Optional[Any],
 ) -> int:
     log = logger.printf
     profiler = None
+    devprof: Optional[_DeviceProfile] = None
+    explain_installed = False
 
     try:
         defaults = default_rebalance_config()
@@ -606,10 +805,47 @@ def _run_impl(
             "scoring; plans stay identical to the single-device session. "
             "Requires -fused-shard",
         )
+        f_jaxprof = f.string(
+            "jax-profile",
+            "",
+            "Write a torch.profiler Chrome trace of the planning region "
+            "(CPU and CUDA activity, one 'plan' range) into this "
+            "directory (the device counterpart of -pprof; never "
+            "forwarded to a daemon)",
+        )
         f_pprof_path = f.string(
             "pprof-path",
             "cpu.pprof",
             "Write the -pprof CPU profile to this path",
+        )
+        f_stats = f.bool(
+            "stats",
+            False,
+            "Print an invocation telemetry summary (lifecycle spans, "
+            "phase timings, counters) to stderr",
+        )
+        f_metrics = f.string(
+            "metrics-json",
+            "",
+            "Write one line of schema-versioned invocation metrics JSON "
+            "to this path ('-' = stdout, after the plan)",
+        )
+        f_trace = f.string(
+            "trace",
+            "",
+            "Write a Chrome trace-event / Perfetto JSON host timeline to "
+            "this path (one track per thread; overlay with the "
+            "-jax-profile device trace)",
+        )
+        f_explain = f.string(
+            "explain",
+            "",
+            "Write a schema-versioned plan-explanation document "
+            "(kafkabalancer-tpu.explain/1) to this path ('-' = stdout, "
+            "after the plan): per-move provenance (loads before/after, "
+            "oracle-exact score deltas, top-k alternatives), "
+            "masked-candidate breakdown, and an explicit no-move reason; "
+            "a human summary prints to stderr",
         )
         f_serve = f.bool(
             "serve",
@@ -630,6 +866,14 @@ def _run_impl(
             900.0,
             "Daemon: exit after this many seconds without requests "
             "(<= 0 disables the idle shutdown)",
+        )
+        f_serve_prewarm = f.string(
+            "serve-prewarm",
+            "",
+            "Daemon: prewarm this PARTITIONSxBROKERS[,...] shape grid at "
+            "startup (one throw-away session per shape bucket after the "
+            "kernel load: the caching allocator, CUDA's lazily loaded "
+            "modules and both kernels warm before request 1)",
         )
         f_serve_lanes = f.int(
             "serve-lanes",
@@ -795,6 +1039,12 @@ def _run_impl(
             "invocation (every request re-reads and re-digests the "
             "full input; wins over -edge-cache)",
         )
+        f_serve_stats = f.bool(
+            "serve-stats",
+            False,
+            "Scrape a live daemon's telemetry (requests, phase "
+            "histograms, lanes, tenants) as human-readable text",
+        )
         f_serve_stats_json = f.bool(
             "serve-stats-json",
             False,
@@ -808,14 +1058,19 @@ def _run_impl(
             "request log) as Perfetto-loadable JSON to this path "
             "('-' = stdout)",
         )
+        f_metrics_prom = f.string(
+            "metrics-prom",
+            "",
+            "Scrape a live daemon and write Prometheus text exposition "
+            "(counters, gauges, histogram summaries) to this path "
+            "('-' = stdout)",
+        )
         f_no_daemon = f.bool(
             "no-daemon",
             False,
             "Never forward to a planning daemon; always plan in this "
             "process",
         )
-        for name, kind, default, usage, _item in _NOT_PORTED:
-            getattr(f, kind)(name, default, f"{usage} (not yet ported)")
         f_help = f.bool("help", False, "Display usage")
 
         def usage():
@@ -828,6 +1083,16 @@ def _run_impl(
         # (the reference ignores Parse's return value, kafkabalancer.go:98).
         f.parse(args[1:] if args else [])
 
+        # the telemetry flag trio is known now; tracing stays a no-op (and
+        # writes no files) unless one of the three asked for it. obs/
+        # imports no torch, so the error exits below stay torch-free with
+        # every flag combination
+        tel.stats = bool(f_stats.value)
+        tel.metrics_path = f_metrics.value
+        tel.trace_path = f_trace.value
+        if tel.any():
+            obs.enable_tracing()
+
         if f_pprof.value:
             import cProfile
 
@@ -839,37 +1104,37 @@ def _run_impl(
             usage()
             return 0
 
-        with obs.span("validate_flags"):
-            for name, _kind, _default, _usage, item in _NOT_PORTED:
-                fl = f.flags[name]
-                if fl.value != fl.default:
-                    log(f"-{name} is not yet ported (ROADMAP.md {item})")
-                    return 3
-
-            if f_serve_stats_json.value or f_serve_dump_trace.value != "":
-                # live-daemon scrape verbs, handled before any input or
-                # planning machinery; combining them with -serve or an
-                # input source is a contradiction
-                if f_serve.value:
-                    log(
-                        "the scrape verbs (-serve-stats-json, "
-                        "-serve-dump-trace) query a live daemon; they "
-                        "cannot be combined with -serve"
-                    )
-                    usage()
-                    return 3
-                if f_input.value != "" or f_zk.value != "":
-                    log(
-                        "the scrape verbs take no input: they query a live "
-                        "daemon, they do not plan"
-                    )
-                    usage()
-                    return 3
-                return _run_scrape(
-                    o, log, f_serve_socket.value,
-                    f_serve_stats_json.value, f_serve_dump_trace.value,
+        if (
+            f_serve_stats.value
+            or f_serve_stats_json.value
+            or f_serve_dump_trace.value != ""
+            or f_metrics_prom.value != ""
+        ):
+            # live-daemon scrape verbs, handled before any input or
+            # planning machinery; combining them with -serve or an input
+            # source is a contradiction
+            if f_serve.value:
+                log(
+                    "the scrape verbs (-serve-stats[-json], "
+                    "-serve-dump-trace, -metrics-prom) query a live "
+                    "daemon; they cannot be combined with -serve"
                 )
+                usage()
+                return 3
+            if f_input.value != "" or f_zk.value != "":
+                log(
+                    "the scrape verbs take no input: they query a live "
+                    "daemon, they do not plan"
+                )
+                usage()
+                return 3
+            return _run_scrape(
+                o, log, f_serve_socket.value,
+                f_serve_stats.value, f_serve_stats_json.value,
+                f_serve_dump_trace.value, f_metrics_prom.value,
+            )
 
+        with obs.span("validate_flags"):
             brokers: Optional[List[int]] = None
             if f_brokers.value != "auto":
                 brokers = []
@@ -1001,6 +1266,7 @@ def _run_impl(
                 idle_timeout=idle_timeout,
                 log=log,
                 devices=None if device is None else [device],
+                prewarm_shapes=f_serve_prewarm.value,
                 lanes=f_serve_lanes.value,
                 slow_ms=f_serve_slow_ms.value,
                 tenant_cap=f_serve_tenant_cap.value,
@@ -1029,16 +1295,28 @@ def _run_impl(
                 ),
             ).serve_forever()
 
-        if not f_no_daemon.value and not f_pprof.value and device is None:
+        if (
+            not f_no_daemon.value
+            and not (f_pprof.value or f_jaxprof.value)
+            and device is None
+        ):
             # transparent forwarding: when a live daemon of this package
             # owns the resolved socket, relay this invocation and return
-            # its verdict verbatim. Every failure falls through to the
-            # in-process path below, byte-identical; a daemon-less host
-            # pays one stat().
-            served, stdin_text = _forward(i, f, log)
+            # its verdict verbatim. Profiling runs (-pprof, -jax-profile)
+            # pin the work to this process and never forward. Every
+            # failure falls through to the in-process path below,
+            # byte-identical; a daemon-less host pays one stat().
+            served, stdin_text = _forward(i, f, log, tel.trace_path)
             if served is not None:
                 o.write(served.stdout)
                 be.write(served.stderr)
+                # the daemon's own run() exported -stats and
+                # -metrics-json (its relayed stdout, stderr and files
+                # carry them), and the merged trace is written: the
+                # local exporter must not write them again
+                tel.stats = False
+                tel.metrics_path = ""
+                tel.trace_path = ""
                 return served.rc
             if stdin_text is not None and f_input.value == "":
                 # true-stdin input was consumed by the forward attempt;
@@ -1098,6 +1376,37 @@ def _run_impl(
                 # before settle mutates anything
                 session.on_parsed(pl)
 
+        if f_fused.value or f_solver.value in ("tpu", "beam"):
+            # overlap the one-time device costs (the torch import, the CUDA
+            # context) with the host work still
+            # to come (pipeline head, repairs, encode): a fresh process,
+            # the reference's per-move deployment unit, would otherwise pay
+            # them one after another before its first launch. Started only
+            # once the flags and the input have parsed, so the exit-1/2/3
+            # argument and input errors never import torch, and never on
+            # the greedy path. Inside a warm daemon (process_warm) those
+            # costs are paid already. The thread never raises and never
+            # decides anything: what it fails at, the planning path meets
+            # again (exit 3). Daemon thread with a bounded exit-time join
+            # (_track_warm_thread).
+            import threading
+
+            from kafkabalancer_tpu_torch.ops.coldstart import (
+                process_warm,
+                warm_backend,
+            )
+
+            if not process_warm():
+                with obs.span("warm_thread_launch") as launch_sp:
+                    warm = threading.Thread(
+                        target=warm_backend,
+                        kwargs=dict(device=device, trace_parent=launch_sp),
+                        name="coldstart-warm",
+                        daemon=True,
+                    )
+                    warm.start()
+                _track_warm_thread(warm)
+
         from kafkabalancer_tpu_torch.balancer import BalanceError, balance
 
         # complete_partition is deliberately NOT copied into cfg: the
@@ -1119,7 +1428,28 @@ def _run_impl(
         )
 
         log(f"rebalance config: {_fmt_cfg(cfg)}")
+        # the outcome slot is fresh per invocation: a daemon reuses
+        # request threads, and a stale decline must not leak into this
+        # invocation's plan.no_move_reason gauge
         convergence.clear_outcome()
+        explain_rec: Optional[convergence.ConvergenceRecorder] = None
+        if f_explain.value != "":
+            explain_rec = convergence.ConvergenceRecorder()
+            convergence.install(explain_rec)
+            explain_installed = True
+            explain_rec.attach(
+                pl, cfg,
+                mode=(
+                    "fused-shard-scale" if f_shard_scale.value
+                    else "fused-shard" if f_shard.value
+                    else "fused" if f_fused.value
+                    else "per-move"
+                ),
+                solver=f_solver.value,
+                engine=f_engine.value if f_fused.value else None,
+                batch=f_batch.value if f_fused.value else None,
+                max_reassign=f_max.value,
+            )
 
         # --- the main reassignment loop (kafkabalancer.go:177-221) -------
         opl = empty_partition_list()
@@ -1129,7 +1459,10 @@ def _run_impl(
 
         dev = None
         if f_fused.value or f_solver.value in ("tpu", "beam"):
-            from kafkabalancer_tpu_torch.solvers.scan import resolve_device
+            # the solver modules import torch here (a warm thread that is
+            # importing it holds the import lock until it is done)
+            with obs.span("resolve_device"):
+                from kafkabalancer_tpu_torch.solvers.scan import resolve_device
 
             try:
                 dev = resolve_device(device)
@@ -1137,6 +1470,17 @@ def _run_impl(
                 what = "-fused" if f_fused.value else f"-solver={f_solver.value}"
                 log(f"{what} needs a CUDA GPU: {exc}")
                 return 3
+
+        if f_jaxprof.value:
+            # -jax-profile: torch.profiler over the planning region, the
+            # same region the reference's jax.profiler trace covers
+            devprof = _DeviceProfile(f_jaxprof.value)
+            try:
+                devprof.start()
+            except OSError as exc:
+                devprof = None
+                log(f"failed creating profile directory {f_jaxprof.value}: {exc}")
+                return 4
 
         if f_fused.value:
             # whole-session device planning (solvers/scan.py) instead of the
@@ -1266,8 +1610,15 @@ def _run_impl(
                             log(f"Partition {changed} did not compare.")
                             # the probe move WAS applied to the live list
                             # (reference aliasing) but stays out of the
-                            # plan: a resident session reverts it, since
-                            # the cluster never sees it (serve/sessions.py)
+                            # plan: flag it, and any peers applied after
+                            # it, so the explain document's emitted count
+                            # matches the plan, and so a resident session
+                            # reverts it, since the cluster never sees it
+                            # (serve/sessions.py)
+                            if explain_rec is not None:
+                                explain_rec.mark_last_unemitted(
+                                    len(lives) - idx
+                                )
                             if session is not None:
                                 session.mark_last_unemitted(
                                     len(lives) - idx
@@ -1289,6 +1640,67 @@ def _run_impl(
                         completing = True
                         log(f"Forcing complete of Partition: {c_partition}")
 
+        # plan outcome attribution (the plan.stop_reason and
+        # plan.no_move_reason gauges): the solver steps note why they
+        # declined (obs/convergence.py's outcome slot); a below-threshold
+        # exit is told apart from a converged one in -stats and
+        # -metrics-json
+        n_planned = len(opl)
+        outcome = convergence.last_outcome()
+        if outcome is None:
+            stop_reason = (
+                "no_budget" if f_max.value == 0
+                else "budget_exhausted" if n_planned else "converged"
+            )
+        else:
+            stop_reason = str(outcome.get("reason", "converged"))
+            if outcome.get("classify_pending") and (
+                tel.any() or explain_rec is not None
+            ):
+                # the fused session deferred the zero-move classification
+                # (scan._note_session_outcome): resolved once, and only
+                # because a telemetry consumer exists — the served steady
+                # state of a converged cluster must not pay a host
+                # candidate scan per request for gauges nobody exports
+                from kafkabalancer_tpu_torch.balancer.steps import (
+                    classify_no_move,
+                )
+
+                refined = classify_no_move(pl, cfg)
+                stop_reason = str(refined["reason"])
+                convergence.note_outcome(**refined)
+                outcome = convergence.last_outcome()
+            if outcome.get("feasible_unknown") and n_planned == 0:
+                # the per-move decline sites note cheaply (they fire
+                # every iteration); the O(P) existence pass runs once,
+                # here, and only for the zero-move exit
+                from kafkabalancer_tpu_torch.balancer.steps import (
+                    _any_feasible_candidate,
+                )
+
+                feasible = _any_feasible_candidate(pl, cfg, False) or (
+                    cfg.allow_leader_rebalancing
+                    and _any_feasible_candidate(pl, cfg, True)
+                )
+                if not feasible:
+                    stop_reason = "no_feasible_candidate"
+                detail = {
+                    k: v for k, v in outcome.items()
+                    if k not in ("reason", "feasible_unknown")
+                }
+                if stop_reason == "no_feasible_candidate":
+                    detail.pop("min_unbalance", None)
+                convergence.note_outcome(stop_reason, **detail)
+        obs.metrics.gauge("plan.stop_reason", stop_reason)
+        tel.attrs.setdefault("plan.stop_reason", stop_reason)
+        if n_planned == 0:
+            obs.metrics.gauge("plan.no_move_reason", stop_reason)
+            tel.attrs.setdefault("plan.no_move_reason", stop_reason)
+
+        if devprof is not None:
+            prof, devprof = devprof, None
+            prof.stop(log)
+
         be.flush(True)
 
         with obs.span("emit", full=f_full.value, unique=f_unique.value):
@@ -1307,8 +1719,40 @@ def _run_impl(
                 log(f"failed writing partition list: {exc}")
                 return 4
 
+        if explain_rec is not None:
+            # the explain document rides after the plan (the plan's bytes
+            # are unchanged); the replay and the ranking happen here in
+            # finalize, outside the planning wall
+            import json as json_mod
+
+            with obs.span("explain"):
+                explain_doc = explain_rec.finalize()
+            line = json_mod.dumps(
+                explain_doc, sort_keys=True, separators=(",", ":"),
+                default=str,
+            ) + "\n"
+            if f_explain.value == "-":
+                o.write(line)
+            else:
+                try:
+                    with open(f_explain.value, "w") as fh:
+                        fh.write(line)
+                except OSError as exc:
+                    log(
+                        "failed writing explain document to "
+                        f"{f_explain.value}: {exc}"
+                    )
+                    return 4
+            be.write(convergence.render_explain(explain_doc))
+
         return 0
     finally:
+        if explain_installed:
+            # never leak a recorder into the next request on this thread
+            # (a daemon reuses request threads)
+            convergence.uninstall()
+        if devprof is not None:  # an early return inside the region
+            devprof.stop(logger.printf)
         if profiler is not None:
             profiler.disable()
             # pprof-format output like the reference's pkg/profile

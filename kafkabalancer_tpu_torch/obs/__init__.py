@@ -15,10 +15,16 @@ path calls:
 - ``obs.flight`` (obs/flight.py) — the planning daemon's always-on
   flight recorder, fed through the tracer's observer hook;
 - ``obs.edge`` (obs/edge.py) — a forwarding client's phase timings and
-  trace context.
+  trace context;
+- obs/export.py — the ``-stats`` summary, the ``-metrics-json`` line, the
+  ``-trace`` Chrome trace (merged with the daemon's spans on a served
+  invocation) and the renderers of the ``-serve-stats`` and
+  ``-metrics-prom`` scrapes; ``-explain`` renders through
+  ``obs.convergence``.
 
-The exporters (``-stats``, ``-metrics-json``, ``-trace``, ``-explain``)
-are not ported yet (ROADMAP.md A1).
+Nothing under this package imports torch or numpy at import time: the
+error exits and the scrape verbs stay torch-free with every telemetry
+flag.
 """
 
 from __future__ import annotations

@@ -54,6 +54,7 @@ from kafkabalancer_tpu_torch.balancer.steps import BalanceError
 from kafkabalancer_tpu_torch.models import PartitionList, RebalanceConfig
 from kafkabalancer_tpu_torch.models.config import ENGINES, default_dtype, kernel_dtype
 from kafkabalancer_tpu_torch.models.partition import empty_partition_list
+from kafkabalancer_tpu_torch.obs import convergence
 from kafkabalancer_tpu_torch.ops.cost import broker_loads, scalar, scatter_add_, unbalance
 from kafkabalancer_tpu_torch.ops.runtime import next_bucket, scale_bucket
 from kafkabalancer_tpu_torch.ops.tensorize import all_allowed_of, tensorize
@@ -469,6 +470,13 @@ def plan_sharded(
             if scale and not use_kernel else 0
         )
         chunk = min(remaining, chunk_moves)
+        rec = convergence.recorder()
+        if rec is not None and dp.member is not None:
+            # -explain candidate-space statistics (the dense encoding the
+            # sharded round scores; one numpy pass, no device sync). The
+            # lean scale encode has no member table, so the scale tier
+            # skips this sample rather than build one
+            rec.note_round(dp, cfg, chunk=chunk, engine=f"shard-{engine}")
         colo = {}
         if lam:
             colo = dict(

@@ -437,9 +437,14 @@ class Daemon:
         watch_poll: float = 5.0,
         watch_argv: Optional[List[str]] = None,
         batching: bool = False,
+        prewarm_shapes: str = "",
     ) -> None:
         self.socket_path = socket_path
         self.idle_timeout = idle_timeout
+        # -serve-prewarm: a PARTITIONSxBROKERS[,...] grid the warm thread
+        # runs one throw-away session per bucket of (prewarm.warm_store)
+        self.prewarm_shapes = prewarm_shapes
+        self.prewarm_summary: Optional[Dict[str, Any]] = None
         # warm=False builds the dispatcher on the calling thread before
         # the accept loop starts and skips the kernel build (the tests'
         # CPU daemons)
@@ -558,10 +563,14 @@ class Daemon:
         resolution imports torch and creates the CUDA context; the
         accept loop answers hello immediately while it runs), then the
         build and load of both kernel libraries, so request 1 pays
-        neither. Never raises: a dispatcher failure falls back to the
-        single-lane Coalescer, and a kernel that fails to build or load
-        is logged — each request that needs it then fails on its own
-        (exit 3), nothing falls back to the plain version."""
+        neither; then the process is marked warm (requests start no warm
+        thread of their own, ops/coldstart.py), and with
+        ``-serve-prewarm`` one throw-away session per shape bucket of the
+        grid runs on every lane's device (prewarm.warm_store). Never
+        raises: a dispatcher failure falls back to the single-lane
+        Coalescer, and a kernel that fails to build or load is logged —
+        each request that needs it then fails on its own (exit 3),
+        nothing falls back to the plain version."""
         t0 = time.perf_counter()
         try:
             self._coalescer = self._make_dispatcher()
@@ -585,23 +594,37 @@ class Daemon:
             if cuda:
                 import torch
 
-                from kafkabalancer_tpu_torch.parallel import shard_kernel
-                from kafkabalancer_tpu_torch.solvers import pallas_session
+                from kafkabalancer_tpu_torch.ops.coldstart import (
+                    KERNELS,
+                    load_kernel,
+                )
 
                 for dev in dict.fromkeys(cuda):
                     # the CUDA context of every lane's card, created now
                     torch.zeros(1, device=dev)
-                for name, load in (
-                    ("shard_score", shard_kernel._load),
-                    ("pallas_session", pallas_session._load),
-                ):
+                for name in KERNELS:
                     try:
-                        load()
+                        load_kernel(name)
                     except Exception as exc:
                         self._log(
                             f"serve: kernel {name} failed to build or "
                             f"load; requests that need it exit 3: {exc}"
                         )
+            from kafkabalancer_tpu_torch.ops.coldstart import mark_process_warm
+
+            mark_process_warm()
+            if self.prewarm_shapes:
+                from kafkabalancer_tpu_torch import prewarm
+
+                summary: Dict[str, Any] = {}
+                for dev in dict.fromkeys(cuda or self._devices):
+                    counts = prewarm.warm_store(
+                        self.prewarm_shapes, device=dev
+                    )
+                    for k, v in counts.items():
+                        summary[k] = summary.get(k, 0) + v
+                self.prewarm_summary = summary
+                self._log(f"serve: prewarm {self.prewarm_shapes}: {summary}")
             self.warm_seconds = time.perf_counter() - t0
             self._log(
                 f"serve: warm in {self.warm_seconds:.3f}s "

@@ -864,6 +864,7 @@ def _decode_packed(
     mslot = packed[ml : ml + n]
     mtgt = packed[2 * ml : 2 * ml + n]
     keep = _superseded_mask(mp, mslot) if drop_superseded else None
+    rec = convergence.recorder()  # -explain provenance (thread-local)
     tap = convergence.mutation_tap()  # a resident session's raw-row shadow
     emitted = 0
     for i in range(n):
@@ -876,12 +877,17 @@ def _decode_packed(
             # a collapsed run whose final write restores the original
             # broker is a net no-op
             continue
+        old = list(part.replicas) if rec is not None else None
         if slot == SWAP_SLOT:
             j = part.replicas.index(tgt)
             part.replicas[j] = part.replicas[0]
             part.replicas[0] = tgt
         else:
             part.replicas[slot] = tgt
+        if rec is not None:
+            # O(1) append; the trajectory replay happens at finalize,
+            # outside the planning wall
+            rec.record_change(part, old, list(part.replicas), "session")
         if tap is not None:
             tap.change(part)
         opl.append(part)
@@ -1034,6 +1040,11 @@ def plan(
         with obs.span("tensorize"):
             dp = tensorize(pl, cfg)
         chunk = min(remaining, chunk_moves)
+        rec = convergence.recorder()
+        if rec is not None:
+            # -explain candidate-space statistics, from the dense
+            # encoding this round built (one numpy pass, no device sync)
+            rec.note_round(dp, cfg, chunk=chunk, engine=engine)
         try:
             packed = _run_chunk(
                 dp, cfg, chunk, dtype, batch, device, scorer, engine,
@@ -1090,6 +1101,9 @@ def _leader_plan(
         with obs.span("tensorize"):
             dp = tensorize(pl, cfg)
         chunk = min(remaining, chunk_moves)
+        rec = convergence.recorder()
+        if rec is not None:
+            rec.note_round(dp, cfg, chunk=chunk, engine="leader")
         packed = _run_chunk(
             dp, cfg, chunk, dtype, batch, device, None, mode="leader"
         )

@@ -250,6 +250,11 @@ def find_best_move(
     ints, floats64, allowed_np, all_allowed = pack_window_args(
         dp, loads_np, cfg
     )
+    rec = convergence.recorder()
+    if rec is not None:
+        # -explain candidate-space statistics from the dense encoding
+        # this pass built (one numpy pass, no device sync)
+        rec.note_round(dp, cfg, chunk=1, engine="tpu-score")
     ints_d = torch.from_numpy(ints).to(device)
     allowed_d = None if allowed_np is None else torch.from_numpy(allowed_np).to(device)
 
@@ -301,6 +306,8 @@ def find_best_move(
             break
     if rows is None:
         raise TieOverflow
+    if rec is not None:
+        rec.note_tie_window(int(len(rows)))
     obs.metrics.count("solver.window_rows", len(rows))
 
     # replay the oracle's own per-partition scan over just the flagged

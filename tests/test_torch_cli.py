@@ -21,8 +21,8 @@ Also pinned here: the port imports neither jax nor the JAX package
 -rebalance-leader``, ``-fused -anti-colocation``, ``-solver=tpu`` and
 ``-solver=beam`` without a GPU exit 3, the colocation session's flag
 checks and the shard flags' checks exit 3 as the reference's do, a
-failure on a shard exits 3, and flags whose feature is not ported exit 3
-naming their ROADMAP.md item.
+failure on a shard exits 3, and every flag of the reference runs (the
+eight the port took last: ``test_every_reference_flag_runs``).
 """
 
 import io
@@ -255,6 +255,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.serve.speculate\n"
         "import kafkabalancer_tpu_torch.serve.spill\n"
         "import kafkabalancer_tpu_torch.serve.edge_cache\n"
+        "import kafkabalancer_tpu_torch.obs.export\n"
+        "import kafkabalancer_tpu_torch.obs.convergence\n"
+        "import kafkabalancer_tpu_torch.ops.coldstart\n"
+        "import kafkabalancer_tpu_torch.prewarm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -337,25 +341,61 @@ def test_polish_with_rebalance_leader_says_it_is_ignored():
     assert "-fused-polish does not apply to the -rebalance-leader" in e.getvalue()
 
 
-@pytest.mark.parametrize(
-    "flag,item",
-    [
-        ("-metrics-json=m.json", "A1"),
-        ("-stats", "A1"),
-        ("-explain=-", "A1"),
-        # -serve itself is ported; of the serving flags only A8's
-        # prewarm grid is left for a later slice
-        pytest.param("-serve-prewarm=1000x10", "A8", id="-serve-A8"),
-        ("-jax-profile=prof", "A9"),
-    ],
-)
-def test_unported_flags_exit_3(flag, item):
-    o, e = io.StringIO(), io.StringIO()
-    rc = trun(
-        io.StringIO(fixture_text()), o, e, ["kafkabalancer", "-input-json", flag]
+# the eight flags of the reference the port took last: each one parses
+# and runs (the telemetry trio, -explain and -jax-profile beside a plan
+# whose bytes they leave unchanged; the scrape verbs against a daemon;
+# -serve-prewarm handed to the daemon)
+FORMERLY_UNPORTED = ["-stats", "-metrics-json", "-trace", "-explain",
+                     "-jax-profile", "-serve-stats", "-metrics-prom",
+                     "-serve-prewarm"]
+
+
+@pytest.mark.parametrize("flag", FORMERLY_UNPORTED)
+def test_every_reference_flag_runs(flag, tmp_path, monkeypatch):
+    import torch_helpers
+
+    base = ["kafkabalancer", "-input-json", f"-input={FIXTURE}", "-no-daemon"]
+
+    def run(argv, **kw):
+        o, e = io.StringIO(), io.StringIO()
+        return trun(io.StringIO(""), o, e, argv, **kw), o.getvalue(), e.getvalue()
+
+    if flag == "-serve-prewarm":
+        from kafkabalancer_tpu_torch.serve import daemon
+
+        seen = {}
+
+        class Stub:
+            def __init__(self, sock, **kw):
+                seen.update(kw)
+
+            def serve_forever(self):
+                return 0
+
+        monkeypatch.setattr(daemon, "Daemon", Stub)
+        rc, _out, err = run(["kafkabalancer", "-serve", f"{flag}=200x12",
+                             f"-serve-socket={tmp_path}/kb.sock"])
+        assert rc == 0 and seen["prewarm_shapes"] == "200x12", err
+        return
+    if flag in ("-serve-stats", "-metrics-prom"):
+        with torch_helpers.running_daemon() as (sock, _d, _logs):
+            arg = flag if flag == "-serve-stats" else f"{flag}=-"
+            rc, out, err = run(["kafkabalancer", arg, f"-serve-socket={sock}"])
+        assert rc == 0 and out, err
+        return
+    value = {"-stats": "", "-jax-profile": f"={tmp_path}/prof"}.get(
+        flag, f"={tmp_path}/out.json"
     )
-    assert rc == 3
-    assert "not yet ported" in e.getvalue() and f"ROADMAP.md {item}" in e.getvalue()
+    want = run(base, device="cpu")
+    rc, out, err = run(base + [flag + value], device="cpu")
+    assert (rc, out) == want[:2], err
+    if flag == "-stats":
+        assert "invocation telemetry" in err
+    elif flag == "-jax-profile":
+        assert len(os.listdir(tmp_path / "prof")) == 1
+    else:
+        with open(tmp_path / "out.json") as fh:
+            json.load(fh)
 
 
 @pytest.mark.parametrize(

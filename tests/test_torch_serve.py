@@ -16,8 +16,9 @@ The pins:
   back, byte-identical to ``-no-daemon``;
 - a client whose request was served imports neither torch, numpy nor jax
   (subprocess);
-- bad frames get an error frame; the scrape verbs answer; the flags left
-  for later slices exit 3 naming their ROADMAP.md item.
+- bad frames get an error frame; the scrape verbs answer; the serving
+  and telemetry flags later slices took behave as the reference's beside
+  an input.
 """
 
 import io
@@ -207,18 +208,50 @@ def test_serve_flag_checks():
     assert rc == 3 and "take no input" in err
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("-serve-prewarm=1000x10", "A8"),
-    ("-serve-stats", "A1"),
-    ("-metrics-prom=-", "A1"),
-    ("-stats", "A1"),
-    ("-metrics-json=-", "A1"),
-    ("-trace=/x", "A1"),
-])
-def test_flags_of_later_slices_exit_3(flag, item):
-    rc, out, err = run_port(["-input-json", f"-input={FIXTURE}", flag])
-    assert rc == 3 and out == ""
-    assert f"(ROADMAP.md {item}" in err, err
+@pytest.mark.parametrize("flag", [
+    "-serve-prewarm=1000x10",
+    "-serve-stats",
+    "-metrics-prom=-",
+    "-stats",
+    "-metrics-json=-",
+    "-trace={out}",
+], ids=["-serve-prewarm=1000x10-A8", "-serve-stats-A1", "-metrics-prom=--A1",
+        "-stats-A1", "-metrics-json=--A1", "-trace=/x-A1"])
+def test_flags_of_later_slices_exit_3(flag, tmp_path):
+    """The serving and telemetry flags that later slices (ROADMAP.md A1,
+    A8) took behave as the reference's beside an input: the scrape verbs
+    exit 3 (they take no input), ``-serve-prewarm`` without ``-serve``
+    changes nothing, and the telemetry flags leave the plan's bytes and
+    the exit code as they are; ``-trace`` writes a Chrome trace from
+    each CLI (each to a file of its own under ``tmp_path``)."""
+    from kafkabalancer_tpu import obs as jobs
+    from kafkabalancer_tpu_torch import obs as tobs
+
+    argv = ["-input-json", f"-input={FIXTURE}", "-no-daemon"]
+    port_trace = tmp_path / "port.json"
+    jax_trace = tmp_path / "jax.json"
+    try:
+        rc, out, err = run_port(argv + [flag.format(out=port_trace)],
+                                device="cpu")
+        jrc, jout, _jerr = run_jax(argv + [flag.format(out=jax_trace)])
+    finally:
+        # a telemetry flag leaves each CLI's tracer enabled until its next
+        # invocation; the other test files of this worker expect it off
+        jobs.begin_invocation()
+        tobs.begin_invocation()
+    assert rc == jrc, err
+    if flag in ("-serve-stats", "-metrics-prom=-"):
+        assert rc == 3 and out == "" and "take no input" in err
+    else:
+        assert rc == 0
+        # the plan line; -metrics-json=- appends the (per-process) metrics
+        assert out.splitlines()[0] == jout.splitlines()[0]
+    if flag.startswith("-trace="):
+        for path in (port_trace, jax_trace):
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+            assert any(ev.get("ph") == "X" and ev["name"] == "plan"
+                       for ev in events), path
 
 
 def test_speculation_and_edge_cache_flags_are_accepted(sock_dir, monkeypatch):
