@@ -1268,6 +1268,7 @@ def _run_impl(
                 devices=None if device is None else [device],
                 prewarm_shapes=f_serve_prewarm.value,
                 lanes=f_serve_lanes.value,
+                microbatch=f_serve_microbatch.value,
                 slow_ms=f_serve_slow_ms.value,
                 tenant_cap=f_serve_tenant_cap.value,
                 max_queue=f_serve_max_queue.value,

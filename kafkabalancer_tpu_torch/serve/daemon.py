@@ -420,6 +420,7 @@ class Daemon:
         warm: bool = True,
         devices: Optional[Sequence[Any]] = None,
         lanes: int = 1,
+        microbatch: int = 1,
         slow_ms: float = 0.0,
         flight_dir: str = "",
         session_cap: int = 64,
@@ -462,6 +463,10 @@ class Daemon:
         # lanes: 1 = the single-lane Coalescer; 0/negative = one lane per
         # device; N>1 = min(N, devices)
         self.lanes = lanes
+        # microbatch (-serve-microbatch): above 1 the lane scheduler is
+        # kept even on one lane, as in the reference, whose single-lane
+        # fusion lives there; here its lane still runs every request solo
+        self.microbatch = max(1, microbatch)
         # cross-request batching was asked for (-serve-microbatch > 1 or
         # -serve-admission-hold): this package runs every request solo
         # (serve/lanes.py) — logged once at start, answers unchanged
@@ -1167,12 +1172,14 @@ class Daemon:
         return max(1, n)
 
     def _make_dispatcher(self) -> Any:
-        """The request dispatcher: the single-lane Coalescer when one
-        lane suffices, else the multi-lane scheduler with per-device
-        lanes, affinity routing and stealing."""
+        """The request dispatcher, chosen by the reference's rule: the
+        single-lane Coalescer for an explicit ``-serve-lanes=1`` or for
+        one lane without ``-serve-microbatch`` above 1, else the lane
+        scheduler with per-device lanes, affinity routing, stealing, the
+        watchdog and the ``lane_crash`` fault site."""
         self._devices = self._resolve_devices()
         n_lanes = self._resolve_lanes()
-        if n_lanes <= 1:
+        if self.lanes == 1 or (n_lanes <= 1 and self.microbatch <= 1):
             from kafkabalancer_tpu_torch.ops.tensorize import set_row_cache
 
             set_row_cache(self.tensorize_cache)
@@ -1202,7 +1209,7 @@ class Daemon:
         # per-invocation metrics epochs.
         obs.set_shared_registry(True)
         self._log(
-            f"serve: {n_lanes} device lanes "
+            f"serve: {n_lanes} device lane{'s' if n_lanes != 1 else ''} "
             f"({', '.join(str(ln.device) for ln in self._lanes)})"
         )
         return scheduler

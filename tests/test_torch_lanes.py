@@ -364,3 +364,57 @@ def test_prefetch_hints_match_the_reference(seed, brokers):
     for key in ("n_parts", "nb", "P", "R", "B", "n_topics", "movable",
                 "all_allowed"):
         assert got[key] == ref[key], key
+
+
+# the dispatcher choice: (-serve-lanes, -serve-microbatch, devices)
+DISPATCH_GRID = [
+    (lanes, mb, ndev)
+    for lanes in (1, 0, 2, 3)
+    for mb in (1, 2)
+    for ndev in (1, 2)
+]
+
+
+@pytest.mark.parametrize("lanes,microbatch,ndev", DISPATCH_GRID)
+def test_dispatcher_class_matches_the_reference(
+    lanes, microbatch, ndev, monkeypatch
+):
+    """Both daemons pick the same dispatcher: the Coalescer for an
+    explicit ``-serve-lanes=1`` or one lane without microbatching, the
+    lane scheduler otherwise (so ``-serve-lanes=0 -serve-microbatch=2``
+    keeps the scheduler, its watchdog and its ``lane_crash`` site on one
+    device)."""
+    import jax
+
+    from kafkabalancer_tpu import obs as jobs
+    from kafkabalancer_tpu.serve.daemon import Daemon as JDaemon
+    from kafkabalancer_tpu_torch import obs as tobs
+    from kafkabalancer_tpu_torch.serve.daemon import Daemon as TDaemon
+
+    jdevs = jax.devices()[:ndev]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: list(jdevs))
+    d = tempfile.mkdtemp(prefix="kbt-")
+    chosen = []
+    try:
+        for make in (
+            lambda: JDaemon(os.path.join(d, "j.sock"), warm=False,
+                            lanes=lanes, microbatch=microbatch),
+            lambda: TDaemon(os.path.join(d, "t.sock"), warm=False,
+                            lanes=lanes, microbatch=microbatch,
+                            devices=["cpu"] * ndev),
+        ):
+            daemon = make()
+            disp = daemon._make_dispatcher()
+            try:
+                n = len(getattr(disp, "lanes", ())) or 1
+                chosen.append((type(disp).__name__, n))
+            finally:
+                disp.stop()
+    finally:
+        jobs.set_shared_registry(False)
+        tobs.set_shared_registry(False)
+        shutil.rmtree(d, ignore_errors=True)
+    assert chosen[0] == chosen[1], chosen
+    single = lanes == 1 or (min(ndev, lanes if lanes > 0 else ndev) <= 1
+                            and microbatch <= 1)
+    assert chosen[1][0] == ("Coalescer" if single else "LaneScheduler")

@@ -78,7 +78,9 @@ def cpu_daemon():
     """One CPU-lane daemon with the CLI's defaults (-serve-lanes=0,
     -serve-microbatch=4, which asks for batching) for the module's
     parity tests."""
-    with running_daemon(lanes=0, batching=True) as (sock, d, logs):
+    with running_daemon(lanes=0, microbatch=4, batching=True) as (
+        sock, d, logs
+    ):
         yield sock, d, logs
 
 
@@ -290,11 +292,13 @@ def test_batching_flags_are_accepted_and_every_request_runs_solo(cpu_daemon):
     """-serve-microbatch, -serve-batch-mode and -serve-admission-hold
     parse on the client, forward, and change no answer; a daemon asked
     for batching logs once that it runs every request solo, and one CPU
-    device keeps the single-lane Coalescer."""
-    from kafkabalancer_tpu_torch.serve.daemon import Coalescer
+    device with -serve-microbatch above 1 keeps the one-lane scheduler,
+    as the reference's daemon does."""
+    from kafkabalancer_tpu_torch.serve.lanes import LaneScheduler
 
     sock, d, logs = cpu_daemon
-    assert isinstance(d._coalescer, Coalescer)
+    assert isinstance(d._coalescer, LaneScheduler)
+    assert len(d._coalescer.lanes) == 1
     assert sum("every request runs solo" in m for m in logs) == 1, logs
     want = run_port(["-input-json", f"-input={FIXTURE}", "-no-daemon"])
     for extra in (["-serve-microbatch=1"], ["-serve-batch-mode=oneshot"],
