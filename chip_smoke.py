@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version on the card, on the first chunk of ``plan(engine="pallas")``
    at the 10k x 100 bucket (budget: the whole chunk) and at 131072 x 256
    (budget 4000), over allow_leader, restricted ``allowed`` and batch 1
-   and 100 (128 at scale). Tolerance: zero — all seven outputs equal
+   and 100 (128 at scale); the batch-1 variants stop after
+   ``B2_BATCH1_BUDGET`` moves. Tolerance: zero — all seven outputs equal
    under ``==``, and two launches give identical bits. Device time per
    launch, iterations, ms per iteration, the torch session's ms per
    iteration on the same inputs, the plain version's time and the bound.
@@ -188,9 +189,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a copy of the cache, ``shard_score``'s library truncated: one rebuild
    and phase 3's plan.
 
+16. The fleet-churn replay harness (``replay/``) on the card, each mode
+   against private ``python -m kafkabalancer_tpu_torch -serve`` daemons
+   it spawns, ``-solver=tpu`` in the daemons and in this process's
+   ``-no-daemon`` oracles, 4 tenants (base 2000 partitions, 50 brokers,
+   3 replicas, ``-max-reassign=2``): a. churn, 40 requests with topic
+   storms every 11 and broker failures every 13 (per-tenant daemon and
+   client p50/p95); b. ``--chaos``, 24 requests (the seeded lane crash
+   must fire and no lane stay quarantined); c. ``--restart``, 24 requests
+   (SIGKILL at half); d. ``--watch`` at its defaults. Each artifact must
+   reconcile with no request error and parity on every checked plan;
+   each mode's wall.
+17. Two processes on the one card (this script with ``--dist-worker``),
+   each naming cuda:0 twice, joined by ``parallel.distributed`` (gloo):
+   ``sharded_score_moves`` on a 1 x 4 mesh whose part axis spans both
+   (equal to the unsharded scorer), ``plan_sharded`` batch 100 on phase
+   3's cluster (phase 11's S = 4 plan on both ranks) and with polish,
+   and a four-scenario sweep on a 2 x 2 mesh whose sweep axis spans
+   both; each equal on both ranks and to this process's one-process run
+   on the same mesh shapes. K1's launches per rank must be 2 shards x
+   sharded iterations (+ the polish tail's iterations).
+
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-15 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-17 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -461,11 +483,19 @@ def capture_session(n_parts, n_brokers, budget, seed, dev, weighted=True):
     return seen[0]
 
 
+# phase 2b's batch-1 variants run at most this many moves: the plain
+# version commits one move per torch iteration, and at the whole chunk's
+# budget the eight batch-1 checks took ~266 s of the script
+B2_BATCH1_BUDGET = 400
+
+
 def b2_variant(args, kw, allow_leader, restricted, batch):
     import torch
 
     a, k = list(args), dict(kw)
     a[14] = batch
+    if batch == 1:
+        a[13] = min(int(a[13]), B2_BATCH1_BUDGET)
     k["allow_leader"] = allow_leader
     if restricted:
         P, B = a[1].shape[0], a[0].shape[0]
@@ -2970,6 +3000,333 @@ def phase_telemetry(dev, path, xla_plan, pallas_plan):
     return out
 
 
+# phase 16: the fleet-churn replay harness (replay/) on the card: private
+# daemons of this package spawned by the harness (python -m
+# kafkabalancer_tpu_torch -serve), -solver=tpu (the per-move window scorer
+# on the device) in the daemon and in this process's -no-daemon oracles,
+# on a fleet of 4 tenants whose whale holds 2000 partitions over 50 brokers
+REPLAY_FLEET = dict(tenants=4, base_partitions=2000, brokers=50, replicas=3,
+                    max_reassign=2, solver="tpu")
+REPLAY_MODES = (
+    ("16a", "churn", dict(requests=40, topic_storm_every=11,
+                          broker_failure_every=13)),
+    ("16b", "chaos", dict(requests=24, chaos=True)),
+    ("16c", "restart", dict(requests=24, restart=True)),
+    ("16d", "watch", dict(watch=True, solver="tpu")),
+)
+
+
+def phase_replay():
+    """Phase 16: ``run_replay`` in each mode; every artifact must
+    reconcile with no request error and parity on every checked plan.
+    Returns each mode's wall."""
+    from kafkabalancer_tpu_torch.replay import REPLAY_SCHEMA, ReplayConfig
+    from kafkabalancer_tpu_torch.replay import run_replay
+
+    walls = {}
+    for tag, mode, kw in REPLAY_MODES:
+        cfg = ReplayConfig(seed=SEED, **(kw if mode == "watch"
+                                         else {**REPLAY_FLEET, **kw}))
+        t0 = time.perf_counter()
+        art = run_replay(cfg, log=lambda m, tag=tag: log(f"{tag}: {m}"))
+        wall = time.perf_counter() - t0
+        walls[tag] = wall
+        if art.get("schema") != REPLAY_SCHEMA or art.get("mode") != mode:
+            fail(f"{tag}: artifact {art.get('schema')} mode {art.get('mode')}")
+        if art.get("request_errors"):
+            fail(f"{tag}: request errors {json.dumps(art['request_errors'])}")
+        block = art.get(mode) if mode != "churn" else None
+        if not art.get("reconciled"):
+            fail(f"{tag}: the {mode} replay did not reconcile: "
+                 f"{json.dumps(block if block else art, default=str)[:3000]}")
+        summary = f"{art['requests_issued']} requests, events {art['events']}"
+        if mode == "churn":
+            par = art.get("parity") or {}
+            if not par.get("ok"):
+                fail(f"16a: the parity sample failed: {par}")
+            tr = art["trace"]
+            if not (tr["checked"] and tr["reconciled"]):
+                fail(f"16a: trace ids not reconciled: {tr}")
+            for name, e in sorted(art["per_tenant"].items()):
+                log(f"16a: {name}: {e['issued']} requests ({e['partitions']} "
+                    f"partitions at the end, {e['moves_applied']} moves "
+                    f"applied), daemon p50/p95 {e['daemon_p50']} / "
+                    f"{e['daemon_p95']} s, client p50/p95 {e['client_p50']} "
+                    f"/ {e['client_p95']} s (bucket upper bounds), "
+                    f"delta hits {e.get('delta_hits')}, resyncs "
+                    f"{e.get('resyncs_rows')} rows / {e.get('resyncs_full')} "
+                    f"full")
+            summary += (f", parity sample ok at step {par['step']}, "
+                        f"{tr['ids_issued']} trace ids matched")
+        elif mode == "chaos":
+            if block["faults_fired"].get("lane_crash", 0) < 1:
+                fail(f"16b: lane_crash never fired: {block['faults_fired']}")
+            if not block["identities"]["no_lane_still_quarantined"]:
+                fail("16b: a lane is still quarantined")
+            summary += (f", {block['answered']} answered (parity on every "
+                        f"one), faults fired {block['faults_fired']}, "
+                        f"{block['shed_total']} sheds, "
+                        f"{block['quarantines']} quarantines / "
+                        f"{block['recoveries']} recoveries, identities "
+                        f"{block['identities']}")
+        elif mode == "restart":
+            summary += (f", SIGKILL after {block['kill_after']}, "
+                        f"{block['answered']} answered (parity on every "
+                        f"one), restores {block['restores']} (hits "
+                        f"{block['restore_hits']}, rate "
+                        f"{block['restore_hit_rate']}), pre/post p95 "
+                        f"{block['pre_restart_p95_s']} / "
+                        f"{block['post_restart_p95_s']} s, first request "
+                        f"after the restart {block['first_post_restart_max_s']}"
+                        f" s, paging identity {block['paging_identity_ok']}")
+        else:
+            summary = (f"{block['plans_emitted']} plans emitted with no "
+                       f"client plan op (parity on {block['parity_checked']}),"
+                       f" speculative hits {block['spec_hit_plans']} (rate "
+                       f"{block['spec_hit_rate']}), {block['resyncs']} "
+                       f"resyncs for {block['drift_events']} drift events, "
+                       f"last event lag {block['last_event_lag_s']} s, "
+                       f"speculation identity "
+                       f"{block['speculation_identity_ok']}")
+        log(f"{tag}: {mode} replay, -solver={cfg.solver}, {cfg.tenants} "
+            f"tenants (base {cfg.base_partitions} partitions, {cfg.brokers} "
+            f"brokers): reconciled, {wall} s wall; {summary}")
+    return walls
+
+
+# phase 17: two processes on the one card. Each runs this script with
+# --dist-worker, joins a gloo group through parallel.distributed and names
+# cuda:0 twice: a 1 x 4 mesh whose part axis spans both processes (the
+# sharded scorer and plan_sharded on phase 3's cluster) and a 2 x 2 mesh
+# whose sweep axis does (four scenarios)
+DIST_SCENARIOS = ("status quo", "+1", "+2", "-1")
+DIST_SWEEP_BUDGET = 500
+
+
+def dist_inputs(path):
+    """Phase 17's shared inputs: phase 3's cluster, its config, the
+    sweep's scenarios and the scorer's dense inputs."""
+    import numpy as np
+    import torch
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.ops.tensorize import tensorize
+    from kafkabalancer_tpu_torch.solvers.tpu import oracle_loads
+
+    with open(path) as fh:
+        text = fh.read()
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    pl = get_partition_list_from_reader(text, True)
+    observed = sorted({b for p in pl.partitions for b in p.replicas})
+    hi = max(observed)
+    scenarios = [observed, observed + [hi + 1], observed + [hi + 1, hi + 2],
+                 observed[1:]]
+    dp = tensorize(pl, cfg, min_bucket=8)
+    loads = np.zeros(dp.bvalid.shape[0])
+    for bid, load in oracle_loads(pl, cfg).items():
+        loads[dp.broker_index(bid)] = load
+
+    def score_args(dev):
+        return tuple(torch.from_numpy(a).to(dev) for a in (
+            loads, dp.replicas, dp.allowed, dp.member, dp.weights,
+            dp.nrep_cur, dp.nrep_tgt, dp.pvalid, dp.bvalid)) + (
+            torch.tensor(float(dp.nb), device=dev), 2)
+
+    return text, cfg, scenarios, score_args
+
+
+def dist_results(dev, path, row, grid):
+    """The sharded scorer on ``row`` (and unsharded), ``plan_sharded``
+    plain and with polish on ``row``, the sweep on ``grid``: plain
+    values (floats as ``float.hex``), walls and K1 launches."""
+    import copy
+
+    import torch
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.parallel.shard_move import sharded_score_moves
+    from kafkabalancer_tpu_torch.parallel.shard_session import plan_sharded
+    from kafkabalancer_tpu_torch.parallel.sweep import sweep
+    from kafkabalancer_tpu_torch.solvers.tpu import score_moves
+
+    text, cfg, scenarios, score_args = dist_inputs(path)
+    out = {"score": []}
+    args = score_args(dev)
+    for leaders in (False, True):
+        for u, i, su, perm in (
+                sharded_score_moves(*args, leaders=leaders, mesh=row),
+                score_moves(*args, leaders=leaders)):
+            out["score"].append([float(u).hex(), int(i), float(su).hex(),
+                                 perm.reshape(-1).tolist()])
+    # one short untimed run first: the kernel library's load and CUDA's
+    # lazily loaded modules stay out of the timed runs
+    plan_sharded(get_partition_list_from_reader(text, True),
+                 copy.deepcopy(cfg), 200, row, batch=100)
+    for key, polish in (("plan", False), ("polish", True)):
+        obs.begin_invocation()
+        sk.shard_score.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opl = plan_sharded(get_partition_list_from_reader(text, True),
+                           copy.deepcopy(cfg), MAIN_REASSIGN, row, batch=100,
+                           polish=polish)
+        torch.cuda.synchronize()
+        out[key] = {
+            "text": plan_text(opl), "wall": time.perf_counter() - t0,
+            "launches": sk.shard_score.launches,
+            "iterations": int(counter("shard.session_iterations")),
+            "session_s": counter("shard.session_seconds"),
+            "cross_s": counter("shard.cross_process_seconds"),
+            "gathers": int(counter("shard.cross_process_gathers")),
+            "tail": int(counter("solver.session_iterations")),
+        }
+    t0 = time.perf_counter()
+    res = sweep(get_partition_list_from_reader(text, True), cfg, scenarios,
+                max_reassign=DIST_SWEEP_BUDGET, mesh=grid, batch=100)
+    torch.cuda.synchronize()
+    out["sweep"] = [[r.feasible, r.completed, r.n_evacuations, r.n_moves,
+                     float(r.unbalance).hex(), r.replicas] for r in res]
+    out["sweep_wall"] = time.perf_counter() - t0
+    return out
+
+
+def dist_worker(argv):
+    """One process of phase 17: ``--dist-worker RANK PORT CLUSTER OUT``."""
+    import torch
+
+    rank, port, path, out_path = int(argv[0]), argv[1], argv[2], argv[3]
+    from kafkabalancer_tpu_torch.parallel import distributed
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", num_processes=2,
+                           process_id=rank, timeout_s=300)
+    dev = torch.device("cuda:0")
+    row = make_mesh(4, shape=(1, 4), devices=[dev, dev])
+    grid = make_mesh(4, devices=[dev, dev])
+    if not (row.spans_processes("part") and grid.spans_processes("sweep")):
+        print("the meshes do not span both processes", flush=True)
+        return 1
+    out = dist_results(dev, path, row, grid)
+    out["rank"] = rank
+    out["process_s"] = time.perf_counter() - t0
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    distributed.shutdown()
+    return 0
+
+
+def phase_distributed(dev, path, xla_plan):
+    """Phase 17: two processes, each on cuda:0 with two shards. Both
+    ranks' results must be equal, the sharded scorer equal to the
+    unsharded one, plan_sharded's plan equal to phase 11's S = 4 plan
+    (phase 3's) and the polish variant and the sweep equal to this
+    process's one-process runs on the same mesh shapes. Returns K1's
+    launches per rank."""
+    import socket
+    import tempfile
+
+    from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    tmp = tempfile.mkdtemp(prefix="kb-dist-")
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         port, os.path.abspath(path), outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, txt) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"17: rank {r} exited {p.returncode}: {txt[-3000:]}")
+    got = []
+    for o in outs:
+        with open(o) as fh:
+            got.append(json.load(fh))
+    log(f"17: two processes on {dev}: {wall} s for both (each process "
+        f"{got[0]['process_s']} / {got[1]['process_s']} s after its start)")
+
+    def same(key):
+        return got[0][key] == got[1][key]
+
+    for key in ("score", "sweep"):
+        if not same(key):
+            fail(f"17: the ranks' {key} results differ")
+    for key in ("plan", "polish"):
+        if got[0][key]["text"] != got[1][key]["text"]:
+            fail(f"17: the ranks' plan_sharded {key} plans differ")
+    for k in range(0, len(got[0]["score"]), 2):
+        if got[0]["score"][k] != got[0]["score"][k + 1]:
+            fail(f"17: sharded_score_moves (leaders={k // 2 == 1}) over two "
+                 f"processes differs from score_moves")
+    log("17: sharded_score_moves over a 1 x 4 mesh of two processes: equal "
+        "on both ranks and to the unsharded score_moves, leaders off and on")
+    if got[0]["plan"]["text"] != xla_plan:
+        fail("17: plan_sharded over two processes differs from phase 11's "
+             "S = 4 plan")
+    one = dist_results(dev, path, make_mesh(devices=[dev] * 4, shape=(1, 4)),
+                       make_mesh(devices=[dev] * 4))
+    if one["plan"]["text"] != xla_plan:
+        fail("17: one-process plan_sharded S = 4 differs from phase 3's plan")
+    if got[0]["polish"]["text"] != one["polish"]["text"]:
+        fail("17: plan_sharded polish over two processes differs from one "
+             "process's")
+    if got[0]["sweep"] != one["sweep"]:
+        fail("17: the sweep over two processes differs from one process's")
+    if got[0]["score"] != one["score"]:
+        fail("17: sharded_score_moves over two processes differs from one "
+             "process's")
+    for key in ("plan", "polish"):
+        for r, g in enumerate(got):
+            run = g[key]
+            want = 2 * run["iterations"] + run["tail"]
+            if run["iterations"] <= 0 or run["launches"] != want:
+                fail(f"17: rank {r} {key}: shard_score launches "
+                     f"{run['launches']} != 2 shards x {run['iterations']} "
+                     f"iterations + {run['tail']} tail iterations")
+        log(f"17: plan_sharded{' polish=True' if key == 'polish' else ''} "
+            f"batch=100 on {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} over 2 processes "
+            f"x 2 shards: walls {got[0][key]['wall']} / {got[1][key]['wall']}"
+            f" s against {one[key]['wall']} s in one process (4 shards), "
+            f"{got[0][key]['iterations']} sharded iterations, sharded "
+            f"session {got[0][key]['session_s']} / {got[1][key]['session_s']}"
+            f" s against {one[key]['session_s']} s, of it "
+            f"{got[0][key]['cross_s']} / {got[1][key]['cross_s']} s in "
+            f"{got[0][key]['gathers']} cross-process gathers, shard_score "
+            f"launches {got[0][key]['launches']} / {got[1][key]['launches']} "
+            f"per rank against {one[key]['launches']} in one process; "
+            + ("phase 11's S = 4 plan" if key == "plan"
+               else "the one-process polish plan"))
+    for name, r in zip(DIST_SCENARIOS, got[0]["sweep"]):
+        log(f"17: sweep {name}: feasible {r[0]}, completed {r[1]}, {r[2]} "
+            f"evacuations, {r[3]} moves, unbalance {float.fromhex(r[4])}")
+    log(f"17: sweep of {len(DIST_SCENARIOS)} scenarios (max_reassign "
+        f"{DIST_SWEEP_BUDGET}, batch 100) over a 2 x 2 mesh of two "
+        f"processes: {got[0]['sweep_wall']} / {got[1]['sweep_wall']} s "
+        f"against {one['sweep_wall']} s in one process; equal results")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return got[0]["plan"]["launches"], got[1]["plan"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3073,6 +3430,15 @@ def main() -> int:
     tel = phase_telemetry(dev, cluster_path, xla_plan, pallas_plan)
     done(15)
 
+    # phase 16: the replay harness's four modes against spawned daemons
+    phase_replay()
+    done(16)
+
+    # phase 17: two processes on the one card; each rank's counts zeroed
+    # just before its plan_sharded run
+    dist_launches = phase_distributed(dev, cluster_path, xla_plan)
+    done(17)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -3109,6 +3475,7 @@ def main() -> int:
                 "spec"].get("shard_score", 0),
             "15a: -fused -fused-batch=100 with every telemetry flag and "
             "-jax-profile": tel["15a"]["launches"],
+            "17: plan_sharded over 2 processes (per rank)": dist_launches[0],
         },
         "colocation_variant": k1_colo,
         "shard_shapes": shard_times,
@@ -3152,6 +3519,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dist-worker"]:
+            sys.exit(dist_worker(sys.argv[2:]))
         sys.exit(main())
     except SystemExit:
         raise

@@ -10,10 +10,16 @@
   ``-shard-scale``), scored by the hand-written kernel
   (:mod:`~kafkabalancer_tpu_torch.parallel.shard_kernel`).
 
-One process drives every device; the shards meet in one function,
-``shard_session.gather_pool``. Multi-host planning is not ported.
+One process drives every device of a mesh by default; the shards meet in
+one function, ``shard_session.gather_pool``. A mesh may also span several
+processes: each calls :func:`initialize` (gloo; no arguments under
+``torchrun``), then ``make_mesh`` over its own devices builds the global
+grid, the session's shards meet in the same ``gather_pool`` across the
+processes, and the sweep gathers its scenarios' results
+(:mod:`~kafkabalancer_tpu_torch.parallel.distributed`).
 """
 
+from kafkabalancer_tpu_torch.parallel.distributed import initialize, is_multi_host
 from kafkabalancer_tpu_torch.parallel.mesh import make_mesh
 
-__all__ = ["make_mesh"]
+__all__ = ["make_mesh", "initialize", "is_multi_host"]

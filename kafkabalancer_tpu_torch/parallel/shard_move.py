@@ -9,7 +9,10 @@ lead device into the global winner. The combine is tie-break exact:
 shard-local flat indices are rebased to global candidate indices
 (partition-major order) and the first minimum in shard order wins, which
 is the unsharded ``score_moves`` argmin (a NaN included: ``argmin``
-takes the first NaN, in one tensor as across shards).
+takes the first NaN, in one tensor as across shards). When the ``part``
+axis spans processes (``parallel/distributed.py``), each process scores
+its own shards and the per-shard minima are gathered to every process
+in shard order, which then takes the same argmin.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from kafkabalancer_tpu_torch.parallel import distributed
 from kafkabalancer_tpu_torch.parallel.mesh import PART_AXIS, Mesh
 from kafkabalancer_tpu_torch.solvers.tpu import score_moves
 
@@ -42,7 +46,8 @@ def sharded_score_moves(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Global best move with the partition rows sharded over ``mesh``'s
     ``part`` axis. Returns ``(u_min, global flat idx, su, perm)`` on the
-    lead device — ``score_moves``'s contract without the tie window.
+    lead device — ``score_moves``'s contract without the tie window —
+    on every process of a mesh that spans several.
 
     The partition bucket must divide by the ``part`` axis size (tensorize
     with a ``min_bucket`` that is a multiple of it)."""
@@ -58,7 +63,7 @@ def sharded_score_moves(
     lead = mesh.lead
     us, gs = [], []
     su = perm = None
-    for i, dev in enumerate(mesh.part):
+    for i, dev in mesh.local_axis(PART_AXIS):
         rows = slice(i * P_l, (i + 1) * P_l)
 
         def loc(t: Tensor) -> Tensor:
@@ -75,5 +80,9 @@ def sharded_score_moves(
         if su is None:  # su and perm are the same on every shard
             su, perm = su_i.to(lead), perm_i.to(lead)
     u_all, g_all = torch.stack(us), torch.stack(gs)
+    if mesh.spans_processes(PART_AXIS):
+        owners = mesh.axis_owners(PART_AXIS)
+        u_all = distributed.gather_rows(u_all, owners)
+        g_all = distributed.gather_rows(g_all, owners)
     k = u_all.argmin()
     return u_all[k], g_all[k], su, perm

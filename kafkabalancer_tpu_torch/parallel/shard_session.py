@@ -21,6 +21,14 @@ acceptance and the move log. Per iteration:
   commit — runs once on the combined pool, and each accepted move is
   written into the rows of the shard that owns its partition.
 
+Across processes (a mesh whose ``part`` axis spans several, see
+``parallel/distributed.py``) each process keeps the shards of its own
+devices only; :func:`gather_pool` all-gathers every process's stacked
+pools in global shard order and every process runs the same combine,
+acceptance and commit on the same pool, so the replicated state and the
+move log are identical on every process. The integer counts summed over
+shards at the start are summed over processes too.
+
 Exactness: under that key the single-device selections (the scoring
 kernel's lowest-row argmin per column, then the strict-< leader merge)
 are associative minima, and the combine follows the kernel's own rules —
@@ -58,6 +66,7 @@ from kafkabalancer_tpu_torch.obs import convergence
 from kafkabalancer_tpu_torch.ops.cost import broker_loads, scalar, scatter_add_, unbalance
 from kafkabalancer_tpu_torch.ops.runtime import next_bucket, scale_bucket
 from kafkabalancer_tpu_torch.ops.tensorize import all_allowed_of, tensorize
+from kafkabalancer_tpu_torch.parallel import distributed
 from kafkabalancer_tpu_torch.parallel.mesh import PART_AXIS, Mesh, shard_put, to_devices
 from kafkabalancer_tpu_torch.parallel.shard_kernel import (
     pack_cols,
@@ -106,28 +115,41 @@ def gather_pool(
 ) -> Tuple[Tensor, ...]:
     """The cross-shard combine: bring each shard's pool ``(vals_raw,
     global row, slot, source, ...)`` to the lead device and combine them
-    with :func:`combine_pools`. The only place where shards meet."""
+    with :func:`combine_pools`. The only place where shards meet.
+    ``pools`` are this process's shards in axis order; when the axis
+    spans processes, every process's ``[S_local, K]`` stacks are
+    gathered in global shard order first (through the host)."""
     lead = mesh.lead
-    cols = zip(*pools)
-    return combine_pools(*(torch.stack([t.to(lead) for t in c]) for c in cols))
+    cols = [torch.stack([t.to(lead) for t in c]) for c in zip(*pools)]
+    if mesh.spans_processes(PART_AXIS):
+        owners = mesh.axis_owners(PART_AXIS)
+        t0 = time.perf_counter()
+        cols = [distributed.gather_rows(c, owners) for c in cols]
+        obs.metrics.count("shard.cross_process_seconds",
+                          time.perf_counter() - t0)
+        obs.metrics.count("shard.cross_process_gathers")
+    return combine_pools(*cols)
 
 
 def _per_shard(x: Shards, mesh: Mesh, what: str) -> List[Tensor]:
-    """``x`` as one tensor per ``part`` device: a list is taken as given,
-    a whole tensor is split by rows."""
-    devs = mesh.part
+    """``x`` as one tensor per ``part`` device of this process: a list
+    (one entry per shard of the axis, ``None`` allowed for other
+    processes' shards) is taken as given, a whole tensor is split by
+    rows."""
+    S = len(mesh.part)
+    local = mesh.local_axis(PART_AXIS)
     if isinstance(x, (list, tuple)):
-        if len(x) != len(devs):
-            raise ValueError(f"{what}: {len(x)} shards for {len(devs)} devices")
-        return [t.to(d) for t, d in zip(x, devs)]
+        if len(x) != S:
+            raise ValueError(f"{what}: {len(x)} shards for {S} devices")
+        return [x[i].to(d) for i, d in local]
     P = x.shape[0]
-    if P % len(devs):
+    if P % S:
         raise ValueError(
-            f"partition bucket {P} not divisible by part axis {len(devs)}; "
-            f"tensorize with min_bucket a multiple of {len(devs)}"
+            f"partition bucket {P} not divisible by part axis {S}; "
+            f"tensorize with min_bucket a multiple of {S}"
         )
-    n = P // len(devs)
-    return [x[i * n:(i + 1) * n].to(d) for i, d in enumerate(devs)]
+    n = P // S
+    return [x[i * n:(i + 1) * n].to(d) for i, d in local]
 
 
 class _Shard:
@@ -220,7 +242,8 @@ def sharded_session(
     ``mesh``'s ``part`` axis (see the module docstring). Returns
     ``(replicas, loads, n_moves, move_p, move_slot, move_src, move_tgt,
     final_su)`` like ``scan.session``, with ``replicas`` the list of
-    per-shard ``[P/S, R]`` results and everything else on the lead.
+    per-shard ``[P/S, R]`` results (this process's shards) and
+    everything else on the lead.
 
     ``replicas``, ``member`` and ``allowed`` are per-shard lists
     (``mesh.shard_put``) or whole ``[P, ...]`` tensors, split here.
@@ -238,7 +261,6 @@ def sharded_session(
     scoring pass, as in ``scan.session``.
     """
     lead = mesh.lead
-    S = mesh.shape[PART_AXIS]
     dtype = loads.dtype
     B = loads.shape[0]
     use_kernel = engine in ("pallas", "pallas-interpret")
@@ -257,9 +279,12 @@ def sharded_session(
             "streams the pallas engine's rows instead)"
         )
     score = scorer or (shard_score_plain if engine == "pallas-interpret" else shard_score)
+    local = mesh.local_axis(PART_AXIS)
     reps = _per_shard(replicas, mesh, "replicas")
-    mems = [None] * S if member is None else _per_shard(member, mesh, "member")
-    alws = [None] * S if allowed is None else _per_shard(allowed, mesh, "allowed")
+    mems = [None] * len(local) if member is None else _per_shard(
+        member, mesh, "member")
+    alws = [None] * len(local) if allowed is None else _per_shard(
+        allowed, mesh, "allowed")
     P_l = reps[0].shape[0]
     if row_chunk >= P_l or row_chunk < 0:
         row_chunk = 0  # one chunk covers the shard
@@ -271,19 +296,23 @@ def sharded_session(
     cols = pack_cols(weights, nrep_cur, nrep_tgt.to(lead), ncons, pvalid)
     tid = topic_id.to(lead).long() if n_topics else None
     shards = []
-    for i, dev in enumerate(mesh.part):
+    for k, (i, dev) in enumerate(local):
         rows = slice(i * P_l, (i + 1) * P_l)
         shards.append(_Shard(
-            dev, i * P_l, reps[i], mems[i], alws[i], cols[rows].to(dev),
+            dev, i * P_l, reps[k], mems[k], alws[k], cols[rows].to(dev),
             nrep_cur[rows].to(dev), pvalid[rows].to(dev),
             None if tid is None else tid[rows].to(dev), B, row_chunk,
         ))
 
     # replicated state: per-broker replica counts and colocation counts
-    # are integer sums of the shards' parts, exact in any order
+    # are integer sums of the shards' parts, exact in any order (over
+    # the processes too)
+    spans = mesh.spans_processes(PART_AXIS)
     bcount = torch.zeros(B, dtype=torch.int32, device=lead)
     for sh in shards:
         bcount += (sh.mem & sh.pvalid[:, None]).sum(0).to(torch.int32).to(lead)
+    if spans:
+        bcount = distributed.all_reduce_sum(bcount)
     colo = None
     if n_topics:
         counts = torch.zeros((n_topics, B), dtype=dtype, device=lead)
@@ -291,13 +320,15 @@ def sharded_session(
             part = torch.zeros((n_topics, B), dtype=dtype, device=sh.dev)
             scatter_add_(part, sh.tid, (sh.mem & sh.pvalid[:, None]).to(dtype))
             counts += part.to(lead)
+        if spans:
+            counts = distributed.all_reduce_sum(counts)
         lam_t = scalar(lam, dtype, lead)
         colo = (tid, counts.view(-1), lam_t)
     log = torch.full((4, max_moves + 1), -1, dtype=torch.long, device=lead)
     mu = scalar(min_unbalance, dtype, lead)
     cg = scalar(churn_gate, dtype, lead)
     minrep = scalar(min_replicas, dtype, lead)
-    devs = mesh.part
+    devs = [d for _, d in local]
 
     def table() -> Tuple[Tensor, Tensor]:
         bvalid = (always_valid | (bcount > 0)) & universe_valid

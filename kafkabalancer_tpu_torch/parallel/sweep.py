@@ -6,7 +6,10 @@ per scenario; here each scenario — a candidate broker set — evacuates
 the replicas stranded on brokers it drops and then rebalances to
 convergence with a device session. Scenarios spread over the mesh's
 ``sweep`` axis and run one after another on each device, as the
-reference's ``lax.map`` runs them on each device group.
+reference's ``lax.map`` runs them on each device group. When that axis
+spans processes (``parallel/distributed.py``), each process runs the
+scenarios of its own devices and the results are gathered to every
+process in scenario order.
 
 Per-scenario semantics mirror a CLI run with ``-broker-ids=<scenario>``:
 
@@ -54,6 +57,7 @@ from kafkabalancer_tpu_torch.models.config import ENGINES, default_dtype, kernel
 from kafkabalancer_tpu_torch.ops.cost import broker_loads, rank_brokers, unbalance
 from kafkabalancer_tpu_torch.ops.runtime import next_bucket
 from kafkabalancer_tpu_torch.ops.tensorize import broker_universe, tensorize
+from kafkabalancer_tpu_torch.parallel import distributed
 from kafkabalancer_tpu_torch.parallel.mesh import SWEEP_AXIS, Mesh, make_mesh
 from kafkabalancer_tpu_torch.solvers import scan
 
@@ -223,8 +227,10 @@ def sweep(
     """Evaluate ``scenarios`` (broker-ID sets); see the module docstring.
     ``pl`` is not mutated. Scenario ``i`` runs on the ``sweep`` axis'
     device ``i // ceil(S / n_sweep)`` (default mesh: every visible CUDA
-    device). ``dtype`` defaults per device (float32 on CUDA, float64 on
-    the CPU); the pallas engines take float32.
+    device); across processes, on the process that owns that device, and
+    every process returns every result. ``dtype`` defaults per device
+    (float32 on CUDA, float64 on the CPU); the pallas engines take
+    float32.
 
     ``batch > 1`` runs each scenario's move session in the batched mode:
     faster convergence, but trajectories (and ``n_moves``) no longer match
@@ -248,6 +254,8 @@ def sweep(
     if mesh is None:
         mesh = make_mesh()
     devs = mesh.axis_devices(SWEEP_AXIS)
+    owners = mesh.axis_owners(SWEEP_AXIS)
+    spans = mesh.spans_processes(SWEEP_AXIS)
 
     pl_input = pl
     pl = copy.deepcopy(pl)
@@ -331,6 +339,8 @@ def sweep(
     with obs.span("sweep.dispatch", scenarios=S, engine=engine,
                   per_scenario=scen_pls is not None):
         for i, sc in enumerate(scenarios):
+            if owners[i // per_dev] != mesh.rank:
+                continue  # another process's scenario
             dev = devs[i // per_dev]
             if dev not in shared:  # the shared inputs, once per device
                 dt = kernel_dtype() if engine != "xla" else (
@@ -385,6 +395,13 @@ def sweep(
                 replicas=dp.decode_replicas(reps_f.cpu().numpy(), sdp.nrep_cur),
                 n_repairs=n_repairs,
             ))
+    if spans:
+        # every process's results, put back in scenario order
+        mine = [i for i in range(len(scenarios))
+                if owners[i // per_dev] == mesh.rank]
+        everyone = distributed.all_gather_object(list(zip(mine, out)))
+        out = [r for _, r in sorted(
+            (pair for part in everyone for pair in part), key=lambda p: p[0])]
     obs.metrics.count("sweep.infeasible", sum(1 for r in out if not r.feasible))
     return out
 

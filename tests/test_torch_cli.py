@@ -259,6 +259,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.obs.convergence\n"
         "import kafkabalancer_tpu_torch.ops.coldstart\n"
         "import kafkabalancer_tpu_torch.prewarm\n"
+        "import kafkabalancer_tpu_torch.replay\n"
+        "import kafkabalancer_tpu_torch.replay.harness\n"
+        "import kafkabalancer_tpu_torch.replay.synth\n"
+        "import kafkabalancer_tpu_torch.replay.__main__\n"
+        "import kafkabalancer_tpu_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"
