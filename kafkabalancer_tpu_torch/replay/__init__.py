@@ -2,7 +2,7 @@
 
 Counterpart of the reference package's ``replay/``: a deterministic
 seeded multi-tenant churn synthesizer (replay/synth.py, a copy of the
-reference's) plus a closed-loop driver (replay/harness.py) that plans
+reference's) plus a closed-loop harness (replay/harness.py) that plans
 every request through this package's REAL forwarding client against a
 live daemon of this package, applies each emitted plan back to the
 tenant's state, and reconciles client-side counts and tail latencies

@@ -12,7 +12,7 @@ emitted plan is applied back to the tenant's state (the closed loop),
 and at the end the harness fetches the daemon's ``serve-stats/8``
 scrape and reconciles:
 
-- per-tenant REQUEST COUNTS: the driver's issued counts must equal the
+- per-tenant REQUEST COUNTS: the harness's issued counts must equal the
   daemon's ``tenants.top[t].requests`` EXACTLY (minus any pre-existing
   baseline when pointed at a shared daemon);
 - per-tenant LATENCY: the scrape's per-tenant p50/p95/p99 must land
