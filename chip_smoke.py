@@ -209,10 +209,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    both; each equal on both ranks and to this process's one-process run
    on the same mesh shapes. K1's launches per rank must be 2 shards x
    sharded iterations (+ the polish tail's iterations).
+18. The port's static analyzer and its runtime twin. a. ``python -m
+   kafkabalancer_tpu_torch.analysis kafkabalancer_tpu_torch/
+   chip_smoke.py``, ``--contracts`` and ``--annotations`` over the typed
+   subpackages, each a process of its own from the checkout: any finding
+   or a non-zero exit fails the run; prints the findings per rule, the
+   suppressions per rule and the device-loop functions. b. phase 3's
+   ``-fused -fused-batch=100`` session and phase 3b's whole-session
+   launch again through ``cli.run``, under
+   ``torch.cuda.set_sync_debug_mode("warn")``: every synchronisation the
+   card reports is attributed to the innermost line of the checkout on
+   the Python stack; prints the syncs per session iteration and the
+   count per ``file:line``. A sync from a line of device-loop code (the
+   analyzer's marking) that carries no R1/R3/R5 suppression fails the
+   run, and so does a plan that differs from phase 3's or 3b's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-17 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-18 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -229,6 +243,7 @@ import time
 import traceback
 
 SEED = 20261016
+ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 # the spin kernel's clock (cycles per ms at the H100's 1.98 GHz boost)
@@ -320,6 +335,8 @@ def variant(args, restricted, colo):
     colocation counts switched on (seeded)."""
     import torch
 
+    from kafkabalancer_tpu_torch.models.config import kernel_dtype
+
     (rep, cols, mem, allowed, loads, F, bvalid, scal, s_i, t_i, live) = args
     g = torch.Generator(device=mem.device).manual_seed(SEED)
     P, B = mem.shape
@@ -332,7 +349,7 @@ def variant(args, restricted, colo):
     if colo:
         crows = torch.randint(
             0, 4, (P, B), generator=g, device=mem.device
-        ).to(torch.float32)
+        ).to(kernel_dtype())
         scal[2] = 0.375
     return (rep, cols, mem, allowed, loads, F, bvalid, scal, s_i, t_i, live,
             crows)
@@ -586,13 +603,13 @@ def b2_split(a, k, label):
         fail(f"pallas_session {label}: phase stamps out of order")
     total = int(d.sum())
     per_it = d.sum(1)
-    med_it = float(per_it.double().median())
+    med_it = float(per_it.median())
     shares = {}
     for i, name in enumerate(ps.STAMP_PHASES):
         col = d[:, i]
         shares[name] = int(col.sum()) / total
         log(f"  split {label} {name}: {100 * shares[name]:.2f} % of the cycles, "
-            f"median {float(col.double().median())} cycles, sum {int(col.sum())} "
+            f"median {float(col.median())} cycles, sum {int(col.sum())} "
             f"cycles over {iters - 1} iterations")
     span = int(s[-1, -1] - s[0, 0])
     log(
@@ -846,14 +863,14 @@ def avg_sweep():
     [1e-3, 1e9]."""
     import numpy as np
 
+    f32 = np.float32  # jaxlint: disable=R4 — the kernel's float32 bit patterns
     exps = np.arange(-41, 42)
-    pow2 = np.ldexp(np.float32(1), exps).astype(np.float32)
-    ones = ((exps + 127).astype(np.uint32) << 23 | 0x7FFFFF).view(np.float32)
-    edge = np.array([np.nextafter(np.float32(2.0**-40), np.float32(0)),
-                     np.nextafter(np.float32(2.0**40), np.float32(np.inf))],
-                    np.float32)
+    pow2 = np.ldexp(f32(1), exps).astype(f32)
+    ones = ((exps + 127).astype(np.uint32) << 23 | 0x7FFFFF).view(f32)
+    edge = np.array([np.nextafter(f32(2.0**-40), f32(0)),
+                     np.nextafter(f32(2.0**40), f32(np.inf))], f32)
     rng = np.random.default_rng(SEED)
-    logu = (10.0 ** rng.uniform(-3, 9, 200)).astype(np.float32)
+    logu = (10.0 ** rng.uniform(-3, 9, 200)).astype(f32)
     return np.concatenate([pow2, ones, edge, logu])
 
 
@@ -862,9 +879,10 @@ def phase_division(dev):
     finite float32 x at every avg met and at the sweep."""
     import torch
 
+    from kafkabalancer_tpu_torch.models.config import kernel_dtype
     from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
 
-    met = torch.unique(torch.cat([a.to(dev, torch.float32) for a in AVGS]))
+    met = torch.unique(torch.cat([a.to(dev, kernel_dtype()) for a in AVGS]))
     sweep = torch.tensor(avg_sweep(), device=dev)
     avgs = torch.cat([met, sweep])
     torch.cuda.synchronize()
@@ -1126,6 +1144,7 @@ def phase_leader(dev, path):
 
     from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
     from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.models.config import kernel_dtype
     from kafkabalancer_tpu_torch.solvers.scan import plan
 
     with open(path) as fh:
@@ -1152,7 +1171,7 @@ def phase_leader(dev, path):
             cfg.rebalance_leaders = True
             t0 = time.perf_counter()
             opl = plan(get_partition_list_from_reader(text, True), cfg, budget,
-                       batch=1, dtype=torch.float32, device="cpu")
+                       batch=1, dtype=kernel_dtype(), device="cpu")
             cpu_s = time.perf_counter() - t0
             cpu_out = plan_text(opl)
             log(f"leader batch 1: the card's plan equals the same float32 "
@@ -1178,6 +1197,7 @@ def loads_on_both(text, dev):
     from kafkabalancer_tpu_torch.balancer import steps
     from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
     from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.models.config import kernel_dtype
     from kafkabalancer_tpu_torch.ops.cost import broker_loads
     from kafkabalancer_tpu_torch.ops.tensorize import tensorize, to_device
 
@@ -1188,7 +1208,7 @@ def loads_on_both(text, dev):
     dp = tensorize(pl, cfg)
     loads = []
     for d in (dev, "cpu"):
-        a = to_device(dp, d, torch.float32)
+        a = to_device(dp, d, kernel_dtype())
         loads.append(broker_loads(a.replicas, a.weights, a.nrep_cur, a.ncons,
                                   dp.bvalid.shape[0]).cpu())
     diff = int((loads[0] != loads[1]).sum())
@@ -3327,6 +3347,230 @@ def phase_distributed(dev, path, xla_plan):
     return got[0]["plan"]["launches"], got[1]["plan"]["launches"]
 
 
+# phase 18: the port's static analyzer (analysis/) from the checkout, then
+# its runtime twin: torch's sync monitor over phase 3's and 3b's paths
+ANALYZER = "kafkabalancer_tpu_torch.analysis"
+TYPED_SUBPACKAGES = ("models", "ops", "codecs", "analysis")
+SYNC_RULES = ("R1", "R3", "R5")
+
+
+def run_analyzer(args, what):
+    """One ``python -m kafkabalancer_tpu_torch.analysis`` process from the
+    checkout with ``--format json``; fails on a non-zero exit or any
+    finding. Returns its wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", ANALYZER, "--format", "json", *args],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+    )
+    wall = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        doc = None
+    if proc.returncode != 0 or doc is None or doc.get("count") != 0:
+        fail(f"18a: {what} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    by_rule = {}
+    for f in doc["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    log(f"18a: {what}: exit 0, {doc['count']} findings (per rule "
+        f"{by_rule}), {wall} s")
+    return wall
+
+
+def suppression_census(paths):
+    """Suppressions per rule id and the device-loop functions over the
+    lint paths, from the analyzer's own parser."""
+    from kafkabalancer_tpu_torch.analysis.context import parse_module
+    from kafkabalancer_tpu_torch.analysis.jaxlint import iter_python_files
+
+    per_rule, loop_fns = {}, 0
+    for path in iter_python_files(paths):
+        with open(path, encoding="utf-8") as fh:
+            ctx = parse_module(fh.read(), path)
+        for rules in ctx.suppressions.values():
+            for r in rules:
+                per_rule[r] = per_rule.get(r, 0) + 1
+        loop_fns += len(ctx.device_loop)
+    return dict(sorted(per_rule.items())), loop_fns
+
+
+def phase_analyzer():
+    """Phase 18a: the lint rules over the port and this script, the
+    contract passes, the annotation floor over the typed subpackages."""
+    lint_paths = ["kafkabalancer_tpu_torch/", "chip_smoke.py"]
+    run_analyzer(lint_paths, "R1-R5 over kafkabalancer_tpu_torch/ and "
+                 "chip_smoke.py")
+    run_analyzer(["--contracts"], "--contracts (R6-R9, SUP)")
+    run_analyzer(["--annotations"] + [f"kafkabalancer_tpu_torch/{d}"
+                                      for d in TYPED_SUBPACKAGES],
+                 "--annotations over " + ", ".join(TYPED_SUBPACKAGES))
+    per_rule, loop_fns = suppression_census(
+        [os.path.join(ROOT, p) for p in lint_paths])
+    log(f"18a: suppressions per rule {per_rule}; {loop_fns} device-loop "
+        f"functions (marked and reached)")
+    return per_rule
+
+
+class SyncMonitor:
+    """Every synchronisation torch reports under
+    ``set_sync_debug_mode("warn")``, attributed to the innermost frame of
+    the checkout on the Python stack (``file:line``)."""
+
+    def __init__(self):
+        self.sites = {}
+        self.unattributed = 0
+
+    def hook(self, message, category, filename, lineno, file=None,
+             line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        import traceback
+
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            path = os.path.abspath(fr.filename)
+            if path.startswith(ROOT + os.sep):
+                site = (os.path.relpath(path, ROOT), fr.lineno)
+                self.sites[site] = self.sites.get(site, 0) + 1
+                return
+        self.unattributed += 1
+
+    def run(self, fn):
+        import warnings
+
+        import torch
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self.hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def total(self):
+        return sum(self.sites.values()) + self.unattributed
+
+
+class LoopLines:
+    """Per file: the device-loop lines (the analyzer's marking) and
+    whether a line carries an R1/R3/R5 suppression."""
+
+    def __init__(self):
+        self.ctx = {}
+
+    def _ctx(self, rel):
+        if rel not in self.ctx:
+            from kafkabalancer_tpu_torch.analysis.context import parse_module
+
+            with open(os.path.join(ROOT, rel), encoding="utf-8") as fh:
+                ctx = parse_module(fh.read(), rel)
+            self.ctx[rel] = (ctx, ctx.device_loop_lines())
+        return self.ctx[rel]
+
+    def in_loop(self, rel, line):
+        return line in self._ctx(rel)[1]
+
+    def suppressed(self, rel, line):
+        """A directive naming R1, R3, R5 (or all) on the line above the
+        innermost statement holding ``line`` through ``line`` (through the
+        statement's end for a simple statement)."""
+        import ast
+
+        ctx = self._ctx(rel)[0]
+        best = None
+        for node in ast.walk(ctx.tree):
+            if (isinstance(node, ast.stmt) and node.lineno <= line
+                    <= (node.end_lineno or node.lineno)):
+                if best is None or node.lineno >= best.lineno:
+                    best = node
+        start = best.lineno if best is not None else line
+        end = line if best is None or hasattr(best, "body") else (
+            best.end_lineno or line)
+        for ln in range(start - 1, end + 1):
+            rules = ctx.suppressions.get(ln, set())
+            if "ALL" in rules or rules & set(SYNC_RULES):
+                return True
+        return False
+
+
+def synced_run(args, counter, want_plan, what, loops):
+    """One ``cli.run`` under the sync monitor; returns the run's syncs, its
+    session iterations and its launches of ``counter``'s kernel."""
+    import torch
+
+    from kafkabalancer_tpu_torch import cli, obs
+
+    mon = SyncMonitor()
+    out, err = io.StringIO(), io.StringIO()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    rc = mon.run(lambda: cli.run(io.StringIO(""), out, err, args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    # cli.run starts from a fresh registry: the counter is this run's
+    iters = int(obs.REGISTRY.counter_get("solver.session_iterations"))
+    if rc != 0:
+        fail(f"18b: {what} returned {rc}: {err.getvalue()[-2000:]}")
+    if out.getvalue() != want_plan:
+        fail(f"18b: {what} under the sync monitor emitted another plan")
+    if mon.total() == 0:
+        fail(f"18b: {what}: the sync monitor recorded nothing")
+    in_loop = {s: n for s, n in mon.sites.items() if loops.in_loop(*s)}
+    stray = sorted(s for s in in_loop if not loops.suppressed(*s))
+    loop_syncs = sum(in_loop.values())
+    log(f"18b: {what}: plan equal to the unmonitored run's, {wall} s wall, "
+        f"{launches} launches, {iters} session iterations, {mon.total()} "
+        f"syncs ({loop_syncs} from device-loop lines, "
+        f"{loop_syncs / max(iters, 1)} per iteration; "
+        f"{mon.total() / max(iters, 1)} per iteration in all; "
+        f"{mon.unattributed} outside the checkout)")
+    for (rel, line), n in sorted(mon.sites.items(), key=lambda kv: -kv[1]):
+        tag = ("device-loop, suppressed" if (rel, line) in in_loop
+               and (rel, line) not in stray else
+               "device-loop, NOT suppressed" if (rel, line) in in_loop
+               else "outside device-loop code")
+        log(f"18b:   {n:6d}  {rel}:{line}  ({tag})  "
+            f"{linecache_line(rel, line)}")
+    if stray:
+        fail(f"18b: {what}: syncs from device-loop lines without an "
+             f"R1/R3/R5 suppression: {stray}")
+    return {"syncs": mon.total(), "loop_syncs": loop_syncs,
+            "iterations": iters, "launches": launches, "wall": wall,
+            "sites": {f"{r}:{ln}": n for (r, ln), n in mon.sites.items()}}
+
+
+def linecache_line(rel, line):
+    import linecache
+
+    return linecache.getline(os.path.join(ROOT, rel), line).strip()[:100]
+
+
+def phase_sync_monitor(path, xla_plan, pallas_plan):
+    """Phase 18b: phase 3's and 3b's paths under torch's sync monitor."""
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    loops = LoopLines()
+    base = ["kafkabalancer", "-input-json", "-input", path, "-fused",
+            "-fused-batch=100", f"-max-reassign={MAIN_REASSIGN}",
+            "-min-unbalance=1e-7"]
+    k1 = synced_run(base, sk.shard_score, xla_plan,
+                    "-fused -fused-batch=100 (K1 per iteration)", loops)
+    b2 = synced_run(base[:5] + ["-fused-engine=pallas"] + base[5:],
+                    ps.pallas_session, pallas_plan,
+                    "-fused -fused-engine=pallas -fused-batch=100 (B2)",
+                    loops)
+    if k1["launches"] <= 0 or b2["launches"] <= 0:
+        fail(f"18b: the monitored runs launched K1 {k1['launches']} and "
+             f"B2 {b2['launches']} times")
+    return {"k1": k1, "b2": b2}
+
+
 def main() -> int:
     import torch
 
@@ -3439,6 +3683,12 @@ def main() -> int:
     dist_launches = phase_distributed(dev, cluster_path, xla_plan)
     done(17)
 
+    # phase 18: the static analyzer from the checkout, then phase 3's and
+    # 3b's paths under the sync monitor, counts zeroed just before each
+    phase_analyzer()
+    syncs = phase_sync_monitor(cluster_path, xla_plan, pallas_plan)
+    done(18)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -3476,7 +3726,11 @@ def main() -> int:
             "15a: -fused -fused-batch=100 with every telemetry flag and "
             "-jax-profile": tel["15a"]["launches"],
             "17: plan_sharded over 2 processes (per rank)": dist_launches[0],
+            "18b: -fused -fused-batch=100 under the sync monitor":
+                syncs["k1"]["launches"],
         },
+        "syncs_per_iteration_18b": syncs["k1"]["loop_syncs"] / max(
+            syncs["k1"]["iterations"], 1),
         "colocation_variant": k1_colo,
         "shard_shapes": shard_times,
         "max_abs_err": main_t["max_abs_err"],
@@ -3501,7 +3755,11 @@ def main() -> int:
                 spec_made["14b"].get("pallas_session", 0),
             "15b: -fused-engine=pallas with every telemetry flag and "
             "-jax-profile": tel["15b"]["launches"],
+            "18b: -fused -fused-engine=pallas under the sync monitor":
+                syncs["b2"]["launches"],
         },
+        "syncs_per_iteration_18b": syncs["b2"]["syncs"] / max(
+            syncs["b2"]["iterations"], 1),
         "max_abs_err": b2_t["max_abs_err"],
         "ms": b2_t["ms"],
         "plain_ms": b2_t["plain_ms"],

@@ -24,6 +24,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from kafkabalancer_tpu_torch.models.config import kernel_dtype
 from kafkabalancer_tpu_torch.ops import nvcc
 from kafkabalancer_tpu_torch.ops.cost import argmin_rows, colo_terms, overload_penalty
 
@@ -178,7 +179,7 @@ def _launch(
     P, R = replicas.shape
     B = member.shape[1]
     B2 = s_i.shape[0]
-    f32, i32 = torch.float32, torch.int32
+    f32, i32 = kernel_dtype(), torch.int32
     _check(replicas, "replicas", i32, (P, R))
     _check(cols, "cols", f32, (P, 5))
     _check(member, "member", torch.bool, (P, B))
@@ -201,7 +202,7 @@ def _launch(
     # scratch, cleared by the launch: copies of one 64-bit (value, row) key
     # per output column, then the kernel's count of finished blocks
     scratch = torch.empty(
-        int(lib.shard_score_scratch_words(B, B2)), dtype=torch.int64, device=dev
+        lib.shard_score_scratch_words(B, B2), dtype=torch.int64, device=dev
     )
     vf, vl = torch.empty(B, dtype=f32, device=dev), torch.empty(B, dtype=f32, device=dev)
     pf, pl_ = torch.empty(B, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev)
@@ -237,7 +238,7 @@ def div_mismatches(avgs: Tensor) -> Tensor:
     correction, ``score::quot``) whose bits differ from the IEEE ``x /
     avg``. Every one of the 2**32 bit patterns is tried; all zeros means
     the two divisions agree for that ``avg``. Returns int64 counts."""
-    _check(avgs, "avgs", torch.float32, (avgs.shape[0],))
+    _check(avgs, "avgs", kernel_dtype(), (avgs.shape[0],))
     lib = _load()
     bad = torch.empty(avgs.shape[0], dtype=torch.int64, device=avgs.device)
     with torch.cuda.device(avgs.device):
@@ -251,6 +252,7 @@ def div_mismatches(avgs: Tensor) -> Tensor:
     return bad
 
 
+# device-loop: the scoring kernel's wrapper, called by every session iteration
 def shard_score(
     replicas: Tensor,
     cols: Tensor,

@@ -108,6 +108,7 @@ def _stranded(
     return valid & ~allowed_s.gather(1, replicas.clamp(min=0).long())
 
 
+# device-loop: the sweep's evacuation of a scenario's stranded replicas
 def _evacuate(
     replicas: Tensor, member: Tensor, allowed_s: Tensor, weights: Tensor,
     nrep_cur: Tensor, ncons: Tensor, pvalid: Tensor, universe_valid: Tensor,
@@ -130,6 +131,7 @@ def _evacuate(
     t0 = time.perf_counter()
     slot = torch.arange(R, device=replicas.device)[None, :]
     valid = (slot < nrep_cur[:, None]) & pvalid[:, None]
+    # jaxlint: disable=R5 — the designed read: the stranded slots, once before the loop
     stranded = _stranded(replicas, allowed_s, valid).reshape(-1).nonzero()[:, 0]
     alive = torch.ones((), dtype=torch.bool, device=replicas.device)
     n = torch.zeros((), dtype=torch.int32, device=replicas.device)
@@ -148,6 +150,7 @@ def _evacuate(
         member[p, s] = member[p, s] & ~alive
         member[p, t] = member[p, t] | alive
         n += alive.to(torch.int32)
+    # jaxlint: disable=R1 — the designed read: the evacuation's one read, after the loop
     n_evac, feasible = int(n), bool(alive)
     obs.metrics.count("sweep.evacuations", n_evac)
     obs.metrics.count("sweep.evacuation_seconds", time.perf_counter() - t0)

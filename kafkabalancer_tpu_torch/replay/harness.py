@@ -47,13 +47,18 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import tempfile
 import time
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from kafkabalancer_tpu_torch.obs.hist import bucket_index, percentile_from_buckets
+from kafkabalancer_tpu_torch.obs.hist import (
+    SUBBUCKETS,
+    bucket_index,
+    percentile_from_buckets,
+)
 from kafkabalancer_tpu_torch.replay.synth import FleetSynth
 
 # v2: + "mode" ("churn" | "chaos") and the "chaos" block (null on churn
@@ -193,13 +198,25 @@ def _percentile_via_buckets(walls: List[float], q: float) -> float:
     return percentile_from_buckets(buckets, q)
 
 
+def edge_index(le: float) -> int:
+    """The bucket whose upper edge ``le`` is, read by the NEAREST edge.
+
+    A scraped percentile is an edge ``2**(i / SUBBUCKETS)`` rounded to 9
+    digits in the stats doc (``obs/hist.py``), and for about half of the
+    inexact edges that rounding lands just above the edge, where
+    ``bucket_index`` (a ceiling) reads the next bucket.
+    Edges lie a quarter octave apart, so the nearest one is the bucket
+    whatever the rounding."""
+    return round(math.log2(le) * SUBBUCKETS)
+
+
 def _bucket_delta(client_le: float, daemon_le: float) -> Optional[int]:
     """Signed distance in log-bucket indexes between two bucket upper
     bounds (positive = client slower); None when either side is
     empty/zero."""
     if client_le <= 0.0 or daemon_le <= 0.0:
         return None
-    return bucket_index(client_le) - bucket_index(daemon_le)
+    return edge_index(client_le) - edge_index(daemon_le)
 
 
 def chaos_fault_spec(seed: int, requests: int) -> str:
@@ -1330,7 +1347,9 @@ def _build_artifact(
             # reported, not gated: how far the end-to-end client view
             # sits above the daemon view (the delta/steady-state gap)
             client_deltas[qname] = _bucket_delta(client_le, daemon_le)
-            if daemon_le > client_le > 0.0:
+            # compared by bucket index, never by float: the scraped
+            # edge may sit a rounding above the client's exact one
+            if (client_deltas[qname] or 0) < 0:
                 covers = False
         rec["latency_bucket_delta"] = lat_deltas
         rec["client_bucket_delta"] = client_deltas

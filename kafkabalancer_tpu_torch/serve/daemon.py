@@ -2486,6 +2486,8 @@ class Daemon:
             faults.disarm()
             obs.tracer.set_observer(None)
             obs.set_shared_registry(False)
+            # ops.tensorize is numpy-only at import — no device attach
+            # jaxlint: disable=R8 — clearing a module-global hook
             set_row_cache(None)
             for sig, handler in old_handlers:
                 try:

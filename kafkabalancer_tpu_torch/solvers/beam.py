@@ -64,7 +64,8 @@ def _frontier(vals: Tensor, k: int) -> Tensor:
     stable sort of the order-preserving integer key keeps that order;
     ``torch.topk`` promises none among ties."""
     neg = -vals
-    if neg.dtype == torch.float64:
+    # the key's width follows the values' (float64 or float32)
+    if neg.element_size() == 8:
         bits, low = neg.view(torch.int64), 0x7FFF_FFFF_FFFF_FFFF
     else:
         bits, low = neg.view(torch.int32), 0x7FFF_FFFF
@@ -225,6 +226,7 @@ def _scan_factory(
             cslot = torch.zeros((W, C, B), dtype=torch.long, device=dev)
             # a dead beam has no candidates: its row stays +inf, as the
             # reference's masked expansion leaves it
+            # jaxlint: disable=R3,R5 — stray: a read per depth step to list the live beams
             for w in torch.nonzero(alive).flatten().tolist():
                 vals[w], cp[w], cslot[w] = expand(
                     loads_b[w], replicas_b[w], member_b[w],
@@ -326,6 +328,7 @@ def beam_search(
     return run(loads, replicas, member, depth)[:8]
 
 
+# device-loop: the beam session; each pass of its while loop searches one move
 def beam_session(
     loads: Tensor,
     replicas: Tensor,
@@ -378,12 +381,14 @@ def beam_session(
          bs_loads, bs_replicas, bs_member) = run(
             loads, replicas, member, min(depth, budget - n)
         )
+        # jaxlint: disable=R1 — the designed read: whether the searched move is taken
         accept = bool((best_u < su0 - min_unbalance) & (best_u < su0))
         # host clock; the read above waited for the search
         obs.metrics.count("beam.search_seconds", time.perf_counter() - t0)
         if not accept:
             break
         # walk the parent chain from the winning depth back to 0
+        # jaxlint: disable=R1 — stray: a second read per move, after the accept read
         bd = int(best_depth)
         beam = best_beam
         for i in range(bd, -1, -1):

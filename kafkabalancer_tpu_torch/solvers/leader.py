@@ -59,6 +59,7 @@ Tensor = torch.Tensor
 SWAP_SLOT = -2
 
 
+# device-loop: the fused leader session; each pass of its while loop is one iteration
 def leader_session(
     loads: Tensor,
     replicas: Tensor,
@@ -135,6 +136,7 @@ def leader_session(
         loads[old] = loads[old] + (-delta)
         loads[light] = loads[light] + delta
         mem[p, old] = mem[p, old] & has
+        # jaxlint: disable=R3 — stray: the constant is copied to the card first
         mem[p, light] = True
         one = (~has).to(torch.int32)
         bcount[old] -= one
@@ -180,8 +182,10 @@ def leader_session(
             fire1 = fire0 & (su_before >= mu)
             cap = min(budget, max_moves)
             fire = fire1 & (n + torch.cumsum(fire1.to(torch.int32), 0) <= cap)
+            # jaxlint: disable=R1 — the designed read: the pairs that fire this iteration
             cnt = int(fire.sum())
             if cnt:
+                # jaxlint: disable=R5 — stray: sizes the firing pairs again after the count
                 ks = torch.nonzero(fire).flatten()
                 transfer(p_star[ks], lk[ks], n + torch.arange(cnt, device=dev))
                 n += cnt
@@ -189,6 +193,7 @@ def leader_session(
         else:
             heavy = perm[(nb - 1).clamp(0, B - 1)]
             lead_mask = (rep[:, 0].long() == heavy) & eligible_p
+            # jaxlint: disable=R1 — the designed read: whether a leader handoff fires
             if bool((su >= mu) & lead_mask.any()):
                 p = torch.where(lead_mask, iota_p, P).amin().clamp(0, P - 1)
                 transfer(p[None], perm[:1], torch.full((1,), n, device=dev))
@@ -199,6 +204,7 @@ def leader_session(
             nrep_tgt, pvalid, universe_valid, min_replicas, mu,
             allow_leader=allow_leader,
         )
+        # jaxlint: disable=R1 — the designed read: whether the best move is taken
         if not bool(accept):
             break
         commit_single(

@@ -35,6 +35,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from kafkabalancer_tpu_torch import obs
+from kafkabalancer_tpu_torch.models.config import kernel_dtype
 from kafkabalancer_tpu_torch.ops import nvcc
 from kafkabalancer_tpu_torch.ops.cost import scalar, scatter_add_
 from kafkabalancer_tpu_torch.parallel.shard_kernel import pack_cols, shard_score_plain
@@ -97,7 +98,7 @@ class SessionState:
                 raise ValueError(
                     f"pallas_session: {name} shape {tuple(t.shape)} != {shape}"
                 )
-        f32 = torch.float32
+        f32 = kernel_dtype()
         self.P, self.R, self.B = P, R, B
         self.device = dev
         dense = torch.contiguous_format
@@ -198,7 +199,7 @@ def pallas_session_plain(
     )
     P, R, B = st.P, st.R, st.B
     dev = st.device
-    f32 = torch.float32
+    f32 = kernel_dtype()
     mu = scalar(min_unbalance, f32, dev)
     cg = scalar(churn_gate, f32, dev)
     minrep = scalar(min_replicas, f32, dev)
@@ -275,6 +276,7 @@ def _load() -> ctypes.CDLL:
     return nvcc.load(SOURCE, _bind)
 
 
+# device-loop: the whole-session kernel's wrapper; the caller reads the counts
 def launch(
     st: SessionState,
     min_replicas: int,
@@ -318,7 +320,7 @@ def launch(
             )
     dev = st.device
     scratch = torch.empty(
-        int(lib.pallas_session_scratch_words(B)), dtype=torch.int64, device=dev
+        lib.pallas_session_scratch_words(B), dtype=torch.int64, device=dev
     )
     log = torch.empty((4, max_moves), dtype=torch.int32, device=dev)
     counts = torch.empty(3, dtype=torch.int32, device=dev)

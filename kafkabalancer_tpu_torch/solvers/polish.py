@@ -170,6 +170,7 @@ def _table(
     return bvalid, nb, avg
 
 
+# device-loop: the pair-swap phase, one swap iteration per pass
 def _swap_loop(
     st: _State,
     *,
@@ -329,7 +330,8 @@ def _swap_loop(
         # budget cap (2 log slots per swap)
         rank = torch.cumsum(ok.long(), 0) - 1
         ok &= (n + 2 * rank + 2 <= budget) & (n + 2 * rank + 2 <= ML)
-        cnt = int(ok.sum())  # the iteration's one host read
+        # jaxlint: disable=R1 — the designed read: the swaps the iteration commits
+        cnt = int(ok.sum())
 
         if cnt:
             # pairs are broker-disjoint and partitions claimed: rejected
@@ -367,6 +369,7 @@ def _swap_loop(
     return it
 
 
+# device-loop: the leader-shuffle phase, one shuffle per pass
 def _leader_shuffle_loop(
     st: _State,
     *,
@@ -426,6 +429,7 @@ def _leader_shuffle_loop(
         flat = torch.where(valid0, delta, torch.full_like(delta, inf)).reshape(-1)
         i = flat.argmin()
         it += 1
+        # jaxlint: disable=R1 — the designed read: whether the best shuffle improves
         if not bool(flat[i] < -eps):
             break
         p, r = i // R, i % R

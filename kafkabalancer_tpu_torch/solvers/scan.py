@@ -479,7 +479,9 @@ def commit_single(
     loads[s_dense] -= delta
     loads[t_dense] += delta
     rep[p, slot] = t_dense.to(rep.dtype)
+    # jaxlint: disable=R3 — stray: the constant is copied to the card first
     mem[p, s_dense] = False
+    # jaxlint: disable=R3 — stray: the constant is copied to the card first
     mem[p, t_dense] = True
     bcount[s_dense] -= 1
     bcount[t_dense] += 1
@@ -644,14 +646,14 @@ def session(
         counts_flat = counts.view(-1)
         lam_t = scalar(lam, dtype, dev)
 
-    def table() -> Tuple[Tensor, Tensor]:
+    def table() -> Tuple[Tensor, Tensor]:  # device-loop: the broker table of every iteration
         bvalid = (always_valid | (bcount > 0)) & universe_valid
         return bvalid, bvalid.sum().to(dtype)
 
     cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
     minrep = scalar(min_replicas, dtype, dev)
 
-    def step_batch(n: int) -> int:
+    def step_batch(n: int) -> int:  # device-loop: one batched session iteration
         bvalid, nb = table()
         colo = dict(c_rows=counts[tid], lam=lam_t) if n_topics else {}
         pool = batch_pool(
@@ -665,17 +667,21 @@ def session(
         # rejected candidates write to the trash element
         _, p, slot, s_, t = pool[:5]
         rep_buf[torch.where(ok, p * R + slot, P * R)] = t.to(rep_buf.dtype)
+        # jaxlint: disable=R3 — stray: the constant is copied to the card first
         mem_buf[torch.where(ok, p * B + s_, P * B)] = False
+        # jaxlint: disable=R3 — stray: the constant is copied to the card first
         mem_buf[torch.where(ok, p * B + t, P * B)] = True
+        # jaxlint: disable=R1 — the designed read: the accepted count ends the iteration
         return int(cnt)
 
-    def step_single(n: int) -> int:
+    def step_single(n: int) -> int:  # device-loop: one single-move session iteration
         bvalid, nb = table()
         accept, p, slot, s_dense, t_dense = single_move(
             loads, rep, mem, allowed, bvalid, nb, weights, nrep_cur,
             nrep_tgt, pvalid, universe_valid, min_replicas, mu,
             allow_leader=allow_leader,
         )
+        # jaxlint: disable=R1 — the designed read: whether the best move is taken
         if not bool(accept):
             return 0
         commit_single(
@@ -690,7 +696,7 @@ def session(
     iters = 0
     t0 = time.perf_counter()
     while n < budget and n < max_moves:
-        cnt = step(n)  # reads the accepted count back: one sync per step
+        cnt = step(n)  # ends in the designed read of the accepted count
         iters += 1
         if cnt == 0:
             break

@@ -262,7 +262,7 @@ def find_best_move(
     # The device pass only filters candidates; acceptance and order come
     # from the host-exact oracle re-scan below.
     rows = None
-    for npdt in (np.float32, np.float64):
+    for npdt in (np.float32, np.float64):  # jaxlint: disable=R4 — tier ladder
         out = score_window(
             ints_d, torch.from_numpy(floats64.astype(npdt)).to(device),
             allowed_d, leaders=leaders, all_allowed=all_allowed,
@@ -275,7 +275,7 @@ def find_best_move(
             # no candidate, or a NaN objective (zero loads); only the
             # float64 tier may conclude that: loads representable in
             # float64 can underflow the float32 cast to a spurious 0/0
-            if npdt is np.float64:
+            if npdt is np.float64:  # jaxlint: disable=R4 — tier ladder
                 convergence.note_outcome(
                     "no_feasible_candidate" if np.isinf(u_min)
                     else "already_balanced",
@@ -288,13 +288,13 @@ def find_best_move(
         # plus the cancellation in rel = load/avg - 1, with
         # rho = relmax + wrel bounding any |rel| a candidate reaches
         rho = 1.0 + (relmax + wrel if np.isfinite(relmax + wrel) else 0.0)
-        if npdt is np.float32:
-            eps = float(np.finfo(np.float32).eps)
+        if npdt is np.float32:  # jaxlint: disable=R4 — tier ladder
+            eps = float(np.finfo(np.float32).eps)  # jaxlint: disable=R4 — tier ladder
             tol = eps * (
                 4.0 * B * max(abs(u_min), abs(su_dev)) + 32.0 * rho * rho
             )
         else:
-            eps = float(np.finfo(np.float64).eps)
+            eps = float(np.finfo(np.float64).eps)  # jaxlint: disable=R4 — tier ladder
             tol = (
                 1e-9 * max(1.0, abs(u_min), abs(su_dev))
                 + 64.0 * eps * rho * rho

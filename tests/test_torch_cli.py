@@ -264,6 +264,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.replay.synth\n"
         "import kafkabalancer_tpu_torch.replay.__main__\n"
         "import kafkabalancer_tpu_torch.parallel.distributed\n"
+        "import kafkabalancer_tpu_torch.analysis\n"
+        "import kafkabalancer_tpu_torch.analysis.jaxlint\n"
+        "import kafkabalancer_tpu_torch.analysis.annotations\n"
+        "import kafkabalancer_tpu_torch.analysis.contracts\n"
+        "import kafkabalancer_tpu_torch.analysis.manifest\n"
+        "import kafkabalancer_tpu_torch.analysis.program\n"
+        "import kafkabalancer_tpu_torch.analysis.rules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'kafkabalancer_tpu' or m.startswith('kafkabalancer_tpu.')]\n"
         "assert not bad, bad\n"

@@ -18,16 +18,22 @@ The pins:
   ``-watch`` over the fake-ZK seam, and ``--chaos`` with the seeded lane
   crash fired (the one-lane scheduler, as in the reference);
 - no daemon is an error, and the entry point's ``--check`` exits 0 on a
-  reconciled run.
+  reconciled run;
+- the bucket-edge read: a scraped percentile (an edge rounded to 9
+  digits) goes back to its bucket by the nearest edge in the port, where
+  the reference's ceiling read lands one bucket up for every edge whose
+  rounding goes up (pinned as the reference's flaw).
 """
 
 import json
+import math
 import os
 import shutil
 import tempfile
 
 import pytest
 
+from kafkabalancer_tpu.obs import hist as jhist
 from kafkabalancer_tpu.replay import harness as jharness
 from kafkabalancer_tpu.replay import synth as jsynth
 from kafkabalancer_tpu_torch.replay import (
@@ -36,6 +42,7 @@ from kafkabalancer_tpu_torch.replay import (
     ReplayError,
     run_replay,
 )
+from kafkabalancer_tpu_torch.obs import hist as thist
 from kafkabalancer_tpu_torch.replay import harness as tharness
 from kafkabalancer_tpu_torch.replay import synth as tsynth
 from torch_helpers import PkgDaemon, package
@@ -123,6 +130,29 @@ CHURN = {
 }
 
 
+def _nearest_edge_latency_verdict(art):
+    """The reference artifact's latency verdict recomputed from its own
+    per-tenant ``daemon_p*`` / ``flight_p*`` / ``client_p*`` fields, each
+    read back to its bucket by the NEAREST edge: the scrape-vs-flight
+    deltas within the configured tolerance and the client covering the
+    daemon, on every checked tenant."""
+    tol = art["config"]["latency_tolerance_buckets"]
+
+    def idx(le):
+        return round(math.log2(le) * jhist.SUBBUCKETS)
+
+    ok = True
+    for e in art["per_tenant"].values():
+        if not e["latency_checked"]:
+            continue
+        for q in ("p50", "p95", "p99"):
+            d, f, c = e[f"daemon_{q}"], e[f"flight_{q}"], e[f"client_{q}"]
+            ok = ok and d > 0 and f > 0 and abs(idx(d) - idx(f)) <= tol
+            if c > 0 and d > 0:
+                ok = ok and idx(c) >= idx(d)
+    return ok
+
+
 @pytest.mark.parametrize("solver", sorted(CHURN))
 def test_churn_replay_equals_the_reference(solver, monkeypatch):
     if solver == "tpu":
@@ -149,7 +179,15 @@ def test_churn_replay_equals_the_reference(solver, monkeypatch):
                     "moves_applied", "partitions"):
             assert te[key] == je[key], (name, key)
     assert sorted(ta["per_tenant"]) == sorted(ja["per_tenant"])
-    assert ta["reconciled"] is ja["reconciled"] is True
+    assert ta["reconciled"] is True
+    # the reference's verdict with its bucket-edge flaw taken out: its
+    # counts and trace ids as before, its latency recomputed with the
+    # nearest-edge read (a tenant's one request in an upward-rounding
+    # bucket fails its ceiling read; see the edge tests below)
+    assert ja["reconciled_counts"] is True
+    assert ja["trace"]["checked"] and ja["trace"]["reconciled"]
+    assert ja["latency_checked"] is True
+    assert _nearest_edge_latency_verdict(ja) is True
     assert ta["latency_checked"] is True
     assert ta["trace"]["checked"] and ta["trace"]["reconciled"]
     assert ta["parity"] == ja["parity"]
@@ -196,6 +234,79 @@ def test_artifact_keys_equal_the_reference():
         "session_bytes", "delta_hit_rate",
     ):
         assert key in entry, key
+
+
+# --- the bucket-edge read -----------------------------------------------------
+
+
+def _upward_edges():
+    """Every bucket edge from 1e-4 s to 100 s whose 9-digit rounding (the
+    stats doc's) lands above the edge."""
+    lo = math.ceil(math.log2(1e-4) * thist.SUBBUCKETS)
+    hi = math.floor(math.log2(100.0) * thist.SUBBUCKETS)
+    edges = (2.0 ** (i / thist.SUBBUCKETS) for i in range(lo, hi + 1))
+    return [e for e in edges if round(e, 9) > e]
+
+
+UPWARD_EDGES = _upward_edges()
+
+
+def test_upward_rounding_edges_exist():
+    # the flaw is common: about half the edges in the range round up
+    assert len(UPWARD_EDGES) >= 30
+    assert 2.0 ** (-5 / 4) in UPWARD_EDGES  # 0.420448208 > 0.4204482076...
+
+
+@pytest.mark.parametrize("edge", UPWARD_EDGES, ids=lambda e: f"{e:.9g}")
+def test_scraped_edge_reads_back_to_its_bucket(edge):
+    scraped = round(edge, 9)
+    # the reference's ceiling read lands one bucket up: its flaw, pinned
+    assert jharness._bucket_delta(scraped, edge) == 1
+    # the port's nearest-edge read gives the bucket back, so the client
+    # (at the exact edge) covers the daemon (at the scraped one)
+    assert tharness._bucket_delta(scraped, edge) == 0
+    assert tharness._bucket_delta(edge, scraped) == 0
+    assert tharness.edge_index(scraped) == thist.bucket_index(edge)
+
+
+def _one_request_artifact(harness_mod, hist_mod, edge):
+    """The artifact of one tenant's one request whose daemon and client
+    walls both lie in the bucket of ``edge`` (the daemon's a little
+    shorter), with the stats doc's percentiles as a streaming hist of
+    the package renders them."""
+    cfg = harness_mod.ReplayConfig(seed=1, tenants=1, requests=1,
+                                   parity_sample=False)
+    synth = harness_mod._make_synth(cfg)
+    name = synth.tenants[0].name
+    daemon_wall, client_wall = edge * 0.93, edge * 0.97
+    h = hist_mod.StreamingHist()
+    h.observe(daemon_wall)
+    doc = {"tenants": {"top": {name: {"requests": 1,
+                                      "request_s": h.snapshot()}}}}
+    flight = [{"tenant": name, "wall_s": daemon_wall, "trace": "t0"}]
+    return harness_mod._build_artifact(
+        cfg, synth, {name: [client_wall]}, {name: 1}, [], None, {}, doc,
+        flight, 1.0, trace_ids=["t0"],
+    ), name
+
+
+def test_one_request_in_an_upward_bucket_reconciles():
+    """The harness-level case: one request whose walls lie in the bucket
+    of 2**(-5/4), whose 9-digit rounding goes up. The port's artifact
+    reconciles; the reference's, with its ceiling read, does not."""
+    edge = 2.0 ** (-5 / 4)
+    ta, name = _one_request_artifact(tharness, thist, edge)
+    te = ta["per_tenant"][name]
+    assert te["daemon_p50"] == te["client_p50"] == round(edge, 9) > edge
+    assert te["latency_checked"] is True
+    assert te["latency_bucket_delta"] == {"p50": 0, "p95": 0, "p99": 0}
+    assert te["client_covers_daemon"] is True
+    assert ta["reconciled_latency"] is True and ta["reconciled"] is True
+    ja, _ = _one_request_artifact(jharness, jhist, edge)
+    je = ja["per_tenant"][name]
+    assert je["latency_bucket_delta"] == {"p50": 1, "p95": 1, "p99": 1}
+    assert je["client_covers_daemon"] is False
+    assert ja["reconciled"] is False
 
 
 # --- the spawned modes (python -m kafkabalancer_tpu_torch -serve) -------------
