@@ -110,8 +110,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    best scenario, the wall and the launches.
 
 13. The planning daemon on the card (``serve/``), on phase 3's cluster:
-   a. the daemon (``-serve``'s defaults: a lane per card; every request
-   runs solo) in a thread of this process on a private socket;
+   a. the daemon (a lane per card; its requests come one at a time, so
+   each runs solo) in a thread of this process on a private socket;
    its warm seconds (the kernel libraries are already loaded in this
    process), and the seconds a fresh ``python -m kafkabalancer_tpu_torch
    -serve`` process takes to warm (torch import, CUDA context, kernel
@@ -120,10 +120,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with phase 3's K1 launches and one B2 launch added by the served
    requests. d. the same two as fresh ``-no-daemon`` processes, wall
    against the served client's wall. e. four fresh clients at once, each
-   on another seeded 10k x 100 cluster, against a second daemon: each
-   plan equal to that cluster's in-process plan on the card, and the K1
-   launches of the four served requests equal to the sum of the four
-   in-process runs'; each client's wall. f. five rounds of the
+   on another seeded 10k x 100 cluster, against a second daemon with
+   ``-serve``'s defaults (``-serve-microbatch=4``): each plan equal to
+   that cluster's in-process plan on the card; the fused rounds read
+   from its stats doc (``microbatched`` equal to the occupancy
+   histogram's members, no padded slot, batched launches exactly when a
+   round fused), and the solo plus batched K1 launches between the
+   longest in-process run's and the four runs' sum; each client's wall.
+   f. five rounds of the
    reference's deployment loop (``-solver=tpu -max-reassign=1
    -min-unbalance=1e-7``, the move
    applied to the file, again) served from a resident session, each move
@@ -224,9 +228,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    analyzer's marking) that carries no R1/R3/R5 suppression fails the
    run, and so does a plan that differs from phase 3's or 3b's.
 
+19. Cross-request fusion, on phase 13e's four clusters: a. the batched
+   scoring kernel (``shard_score_batched``, one launch for K instances)
+   at K = 1, 2, 4 on each cluster's first-iteration inputs: each
+   instance equal to a solo ``shard_score`` launch and to the plain
+   version (zero tolerance), its device time (L2 flushed) against K solo
+   launches and the bound (K instances' bytes). b. ``scan.session_batched``
+   over the four instances against four solo ``scan.session`` calls:
+   every packed move log byte-equal, each instance's iterations its solo
+   session's, batched launches equal to the longest's iterations, and
+   under the sync monitor exactly one sync per iteration from
+   device-loop lines (the designed read); walls. c. a daemon with
+   ``-serve-microbatch=4 -serve-admission-hold=4``, in ``continuous``
+   and in ``oneshot`` mode, four fresh clients at once: every plan equal
+   to 13e's in-process plan, the stats doc's ``microbatched`` 4 and
+   ``mb_occupancy`` ``{"4": 1}`` (one fused round of the one chunk),
+   ``mb_padded_slots`` 0, no solo K1 launch and the batched launches at
+   most the longest member's in-process count; the client walls beside
+   13e's.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-18 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-19 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -1932,8 +1955,8 @@ def serving_daemon(sock, **kw):
     from kafkabalancer_tpu_torch.serve.daemon import Daemon
 
     logs = []
-    d = Daemon(sock, log=logs.append, idle_timeout=0, lanes=0, batching=True,
-               **kw)
+    kw.setdefault("lanes", 0)
+    d = Daemon(sock, log=logs.append, idle_timeout=0, **kw)
     rc_box = []
     t = threading.Thread(target=lambda: rc_box.append(d.serve_forever()),
                          name="smoke-daemon", daemon=True)
@@ -2130,27 +2153,46 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
                 fail(f"concurrent cluster {k}: in-process rc {rc}")
             paths.append(pk)
             wants.append(want)
+        # daemon B with -serve's defaults (-serve-lanes=0
+        # -serve-microbatch=4): the four requests may fuse, in whatever
+        # rounds their arrival makes
         sock_b = os.path.join(sock_dir, "b.sock")
-        d, t, rc_box, logs = serving_daemon(sock_b)
+        d, t, rc_box, logs = serving_daemon(sock_b, microbatch=4)
         d._warm_done.wait(240)
         sk.shard_score.launches = 0
+        sk.shard_score_batched.launches = 0
         t0 = time.perf_counter()
         procs = [start_client(["-input-json", "-input", pk] + fused_args[3:]
                               + [f"-serve-socket={sock_b}"]) for pk in paths]
         results = finish_clients(procs, t0, "concurrent client")
         all_wall = time.perf_counter() - t0
-        counts["concurrent"] = sk.shard_score.launches
+        solo_n = sk.shard_score.launches
+        fused_n = sk.shard_score_batched.launches
+        counts["concurrent"] = solo_n
+        counts["concurrent_batched"] = fused_n
+        st = client.fetch_stats(sock_b) or {}
         for k, res in enumerate(results):
             if res[1] != wants[k]:
                 fail(f"concurrent client {k}: the served plan differs from "
                      f"the cluster's in-process plan")
-        if counts["concurrent"] != sum(k1_solo):
+        occ = {int(k): v for k, v in (st.get("mb_occupancy") or {}).items()}
+        fused_members = sum(k * v for k, v in occ.items())
+        if st.get("microbatched") != fused_members or fused_members > 4:
+            fail(f"concurrent: stats microbatched {st.get('microbatched')} "
+                 f"against the occupancy histogram {occ}")
+        if (fused_members > 0) != (fused_n > 0) or st.get("mb_padded_slots"):
+            fail(f"concurrent: {fused_members} fused members but "
+                 f"{fused_n} batched launches (padded "
+                 f"{st.get('mb_padded_slots')})")
+        if not max(k1_solo) <= solo_n + fused_n <= sum(k1_solo):
             fail(f"concurrent: the four served requests launched shard_score "
-                 f"{counts['concurrent']} times, the four in-process runs "
-                 f"{k1_solo}")
-        log(f"serve 13e [{CARD}]: four concurrent clients, each plan equal to "
-            f"its in-process plan; shard_score launches {counts['concurrent']} "
-            f"= {' + '.join(str(n) for n in k1_solo)} of the in-process runs; "
+                 f"{solo_n} and shard_score_batched {fused_n} times, the four "
+                 f"in-process runs {k1_solo}")
+        log(f"serve 13e [{CARD}]: four concurrent clients (-serve-microbatch"
+            f"=4), each plan equal to its in-process plan; fused rounds by "
+            f"occupancy {occ} ({fused_members} of 4 requests fused); "
+            f"shard_score launches {solo_n} + shard_score_batched {fused_n} "
+            f"against {' + '.join(str(n) for n in k1_solo)} in process; "
             f"client walls {[r[3] for r in results]} s (all four in {all_wall} "
             f"s)")
         stop_daemon(sock_b, d, t, rc_box, logs, 4, {"session_absent": 4},
@@ -2158,7 +2200,9 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
     finally:
         shutil.rmtree(sock_dir, ignore_errors=True)
     log(f"serve: phase 13 took {time.perf_counter() - t_phase} s")
-    return counts, loop_walls
+    batch = dict(paths=paths, wants=wants, k1_solo=k1_solo,
+                 walls=[r[3] for r in results], fused_args=fused_args[3:])
+    return counts, loop_walls, batch
 
 
 # phase 14: the rest of the planning daemon with -serve's defaults —
@@ -3571,6 +3615,273 @@ def phase_sync_monitor(path, xla_plan, pallas_plan):
     return {"k1": k1, "b2": b2}
 
 
+# phase 19: cross-request fusion on the card — the batched scoring pass,
+# the instance-batched session and the daemon's batchers, on phase 13e's
+# four clusters
+BATCH_KS = (1, 2, 4)
+
+
+def batch_session_inputs(path, dev):
+    """One cluster file's settled session inputs on the card (the first
+    chunk of ``-fused -min-unbalance=1e-7``): the 11 tensors of
+    ``scan.session`` and the knobs ``(min_replicas, min_unbalance,
+    budget, max_moves)``."""
+    import torch
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.models.config import default_dtype
+    from kafkabalancer_tpu_torch.ops.cost import broker_loads
+    from kafkabalancer_tpu_torch.ops.runtime import next_bucket
+    from kafkabalancer_tpu_torch.ops.tensorize import (
+        all_allowed_of,
+        tensorize,
+        to_device,
+    )
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    with open(path) as fh:
+        pl = get_partition_list_from_reader(fh, True)
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = 1e-7
+    _rep, budget = scan._settle_head(pl, cfg, MAIN_REASSIGN)
+    dp = tensorize(pl, cfg)
+    d = to_device(dp, dev, default_dtype(dev), all_allowed=all_allowed_of(dp))
+    loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons,
+                         dp.bvalid.shape[0])
+    always = torch.from_numpy(scan._cfg_broker_mask(dp, cfg)).to(dev)
+    chunk = min(budget, scan.auto_chunk_moves(len(pl.partitions)))
+    return ((loads, d.replicas, d.member, d.allowed, d.weights, d.nrep_cur,
+             d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid),
+            (cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+             next_bucket(chunk, 128)))
+
+
+def first_pass_args(ins):
+    """The scoring pass's inputs at a session's first iteration (the
+    main-path variant: every broker allowed, no colocation counts)."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    loads, rep, mem, alw, w, nc, nt, ncons, pv, always, uv = ins
+    bvalid = (always | ((mem & pv[:, None]).sum(0) > 0)) & uv
+    avg, F, _su, s_i, t_i, live = scan.pool_frame(
+        loads, bvalid, bvalid.sum().to(loads.dtype))
+    scal = torch.stack([avg, torch.full_like(avg, 2.0),
+                        torch.zeros_like(avg)])
+    return variant((rep, sk.pack_cols(w, nc, nt, ncons, pv), mem, alw, loads,
+                    F, bvalid, scal, s_i.int().contiguous(),
+                    t_i.int().contiguous(), live.contiguous()), False, False)
+
+
+def check_k1_batched(per):
+    """19a: the batched scoring pass at K = 1, 2, 4 against K solo
+    launches and its plain version, bit for bit, then timed."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    out = {}
+    for K in BATCH_KS:
+        st = [None if per[0][j] is None else
+              torch.stack([per[k][j] for k in range(K)]).contiguous()
+              for j in range(12)]
+        for lead in (False, True):
+            got = sk.shard_score_batched(*st[:11], c_rows=st[11],
+                                         allow_leader=lead)
+            again = sk.shard_score_batched(*st[:11], c_rows=st[11],
+                                           allow_leader=lead)
+            ref = sk.shard_score_batched_plain(*st[:11], c_rows=st[11],
+                                               allow_leader=lead)
+            for k in range(K):
+                solo = sk.shard_score(*per[k][:11], c_rows=per[k][11],
+                                      allow_leader=lead)
+                for name, a, b, c, d in zip(
+                    ("vf", "pf", "vl", "pl", "vpf", "ppf", "vpl", "ppl"),
+                    got, again, ref, solo,
+                ):
+                    if not (torch.equal(a[k], b[k]) and torch.equal(a[k], d)
+                            and bool((a[k] == c[k]).all())):
+                        fail(f"19a: shard_score_batched K={K} instance {k} "
+                             f"allow_leader={lead}: output {name} differs "
+                             f"from a solo launch or the plain version")
+        log(f"19a: shard_score_batched K={K}: each instance equal to a solo "
+            f"shard_score launch and to the plain version (8 outputs, "
+            f"allow_leader off and on, max_abs_err 0.0)")
+        ms, host_ms = cuda_ms(
+            lambda: sk.shard_score_batched(*st[:11], allow_leader=False), 20,
+            flush)
+        solo_ms, solo_host = cuda_ms(
+            lambda: [sk.shard_score(*per[k][:11], allow_leader=False)
+                     for k in range(K)], 20, flush)
+        plain_ms, _ph = cuda_ms(
+            lambda: sk.shard_score_batched_plain(*st[:11],
+                                                 allow_leader=False), 3,
+            flush)
+        n_bytes = sum(k1_bytes(per[k], False) for k in range(K))
+        n_ops = sum(k1_ops(per[k], False) for k in range(K))
+        t_b, t_o = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S
+        bound = 1e3 * max(t_b, t_o)
+        by = "bytes" if t_b >= t_o else "operations"
+        out[K] = dict(ms=ms, host_ms=host_ms, solo_ms=solo_ms,
+                      solo_host_ms=solo_host, plain_ms=plain_ms,
+                      bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops)
+        log(f"19a [{CARD}]: K={K} at 10k x 100 (P={per[0][2].shape[0]} "
+            f"B={per[0][2].shape[1]}): one batched launch {ms} ms on the "
+            f"device ({host_ms} ms host), {K} solo launches {solo_ms} ms "
+            f"({solo_host} ms host), plain {plain_ms} ms, bound {bound} ms "
+            f"({by}; {n_bytes} bytes, {n_ops} ops)")
+    del flush_buf
+    return out
+
+
+def check_session_batched(ins, knobs):
+    """19b: ``session_batched`` over the four instances against four solo
+    ``session`` calls, byte for byte, under the sync monitor."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    K = len(ins)
+    mm = max(k[3] for k in knobs)
+    solo, solo_launches, solo_wall = [], [], 0.0
+    for k in range(K):
+        sk.shard_score.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _r, _l, n, mp, msl, _ms, mt, _su = scan.session(
+            *ins[k], knobs[k][0], knobs[k][1], knobs[k][2], max_moves=mm,
+            allow_leader=False, batch=100)
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo.append(torch.cat([mp, msl, mt, torch.tensor(
+            [n], dtype=torch.int32, device=mp.device)]).cpu())
+        solo_launches.append(sk.shard_score.launches)
+    stacked = [None if ins[0][j] is None else
+               torch.stack([x[j] for x in ins]) for j in range(11)]
+    mon = SyncMonitor()
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    t0 = time.perf_counter()
+    packed, iters, _secs = mon.run(lambda: scan.session_batched(
+        *stacked, [k[0] for k in knobs], [k[1] for k in knobs],
+        [k[2] for k in knobs], max_moves=mm, allow_leader=False, batch=100))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.shard_score_batched.launches
+    if sk.shard_score.launches:
+        fail(f"19b: the batched session launched shard_score "
+             f"{sk.shard_score.launches} times")
+    for k in range(K):
+        if not torch.equal(packed[k].cpu(), solo[k]):
+            fail(f"19b: session_batched instance {k}: the move log differs "
+                 f"from its solo session's")
+    if iters != solo_launches:
+        fail(f"19b: per-instance iterations {iters}, the solo sessions "
+             f"{solo_launches}")
+    if launches != max(iters):
+        fail(f"19b: {launches} batched launches for {max(iters)} iterations")
+    loops = LoopLines()
+    in_loop = {st: n for st, n in mon.sites.items() if loops.in_loop(*st)}
+    stray = sorted(st for st in in_loop if not loops.suppressed(*st))
+    loop_syncs = sum(in_loop.values())
+    if stray or loop_syncs != max(iters):
+        fail(f"19b: {loop_syncs} syncs from device-loop lines for "
+             f"{max(iters)} iterations (unsuppressed: {stray}); "
+             f"{mon.sites}")
+    log(f"19b [{CARD}]: session_batched over 4 instances: every move log "
+        f"equal to its solo session's ({[int(p[-1]) for p in solo]} moves); "
+        f"iterations {iters}, {launches} shard_score_batched launches; "
+        f"{loop_syncs} syncs from device-loop lines ("
+        f"{loop_syncs / max(iters)} per iteration), {mon.total()} in all; "
+        f"wall {wall} s against {solo_wall} s for the four solo sessions "
+        f"({sum(solo_launches)} launches)")
+    return dict(iterations=iters, launches=launches, wall=wall,
+                solo_wall=solo_wall, loop_syncs=loop_syncs,
+                syncs=mon.total())
+
+
+def served_batching(batch, mode, sock_dir):
+    """19c: four clients at once against a daemon with
+    ``-serve-microbatch=4 -serve-admission-hold=4`` in ``mode``."""
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.serve import client
+
+    sock = os.path.join(sock_dir, f"{mode}.sock")
+    d, t, rc_box, logs = serving_daemon(sock, microbatch=4, admission_hold=4,
+                                        batch_mode=mode)
+    if not d._warm_done.wait(240):
+        fail(f"19c {mode}: the daemon never finished its warm body")
+    d._coalescer._hold_window_s = 120.0
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    t0 = time.perf_counter()
+    procs = [start_client(["-input-json", "-input", pk] + batch["fused_args"]
+                          + [f"-serve-socket={sock}"])
+             for pk in batch["paths"]]
+    results = finish_clients(procs, t0, f"19c {mode} client")
+    all_wall = time.perf_counter() - t0
+    solo_n = sk.shard_score.launches
+    fused_n = sk.shard_score_batched.launches
+    st = client.fetch_stats(sock) or {}
+    for k, res in enumerate(results):
+        if res[1] != batch["wants"][k]:
+            fail(f"19c {mode}: client {k}'s plan differs from its cluster's "
+                 f"in-process plan")
+    if (st.get("microbatched") != 4 or st.get("mb_occupancy") != {"4": 1}
+            or st.get("mb_padded_slots") != 0
+            or st.get("batch_mode") != mode):
+        fail(f"19c {mode}: the four requests did not fuse in one round: "
+             f"microbatched {st.get('microbatched')}, occupancy "
+             f"{st.get('mb_occupancy')}, padded {st.get('mb_padded_slots')}")
+    if solo_n or not 0 < fused_n <= max(batch["k1_solo"]):
+        fail(f"19c {mode}: shard_score {solo_n} and shard_score_batched "
+             f"{fused_n} launches; the longest member's solo run had "
+             f"{max(batch['k1_solo'])}")
+    walls = [r[3] for r in results]
+    log(f"19c [{CARD}]: {mode}: four concurrent clients, each plan equal to "
+        f"its in-process plan; one fused round of 4 (stats microbatched 4, "
+        f"occupancy {{'4': 1}}, padded 0); {fused_n} shard_score_batched "
+        f"launches and no solo launch, against the longest member's "
+        f"{max(batch['k1_solo'])} and {sum(batch['k1_solo'])} for all four "
+        f"in process; client walls {walls} s (all four in {all_wall} s; "
+        f"13e with the defaults: {batch['walls']} s)")
+    stop_daemon(sock, d, t, rc_box, logs, 4, {"session_absent": 4},
+                f"(19c {mode})")
+    return dict(launches=fused_n, walls=walls, all_wall=all_wall)
+
+
+def phase_batching(dev, batch):
+    """Phase 19: cross-request fusion on the card (see the module
+    docstring); returns the K1 timings and each path's launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    loaded = [batch_session_inputs(p, dev) for p in batch["paths"]]
+    ins = [x[0] for x in loaded]
+    knobs = [x[1] for x in loaded]
+    shapes = {tuple(i[2].shape) for i in ins}
+    if len(shapes) != 1:
+        fail(f"19: the four clusters fall in different buckets: {shapes}")
+    k1 = check_k1_batched([first_pass_args(i) for i in ins])
+    sess = check_session_batched(ins, knobs)
+    del ins, loaded
+    sock_dir = tempfile.mkdtemp(prefix="kbt-")
+    try:
+        served = {mode: served_batching(batch, mode, sock_dir)
+                  for mode in ("continuous", "oneshot")}
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    log(f"19: phase 19 took {time.perf_counter() - t_phase} s")
+    return dict(k1=k1, session=sess, served=served)
+
+
 def main() -> int:
     import torch
 
@@ -3660,7 +3971,7 @@ def main() -> int:
 
     # phase 13: the planning daemon, each served path's counts zeroed just
     # before it
-    serve_launches, loop13_walls = phase_serve(
+    serve_launches, loop13_walls, batch13 = phase_serve(
         cluster_path, xla_plan, launches, pallas_plan, b2_launches)
     done(13)
 
@@ -3689,6 +4000,11 @@ def main() -> int:
     syncs = phase_sync_monitor(cluster_path, xla_plan, pallas_plan)
     done(18)
 
+    # phase 19: cross-request fusion on phase 13e's clusters, each path's
+    # counts zeroed just before it
+    fusion = phase_batching(dev, batch13)
+    done(19)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -3715,7 +4031,8 @@ def main() -> int:
             **shard_launches,
             "12: sweep engine=xla batch=100": sweep_launches["xla"][0],
             "13b: served -fused -fused-batch=100": serve_launches["fused"],
-            "13e: four concurrent served 10k x 100 -fused requests":
+            "13e: four concurrent served 10k x 100 -fused requests "
+            "(-serve-microbatch=4; the requests that ran solo)":
                 serve_launches["concurrent"],
             "14a: speculative runs of the -fused -max-reassign=1 loop":
                 spec_made["14a"].get("shard_score", 0),
@@ -3768,6 +4085,39 @@ def main() -> int:
         "library_ms": None,
         "split": {"10k x 100": b2_t["split"],
                   "131072 x 256": b2_scale["split"]},
+    }, {
+        "name": "shard_score_batched",
+        "route": "cuda",
+        "source": "kafkabalancer_tpu_torch/csrc/shard_score.cu",
+        "replaces": "kafkabalancer_tpu/parallel/shard_kernel.py:74",
+        "launches": fusion["served"]["continuous"]["launches"],
+        "launches_by_path": {
+            "13e: four concurrent served 10k x 100 -fused requests "
+            "(-serve-microbatch=4; the fused rounds)":
+                serve_launches["concurrent_batched"],
+            "19b: session_batched over four 10k x 100 instances":
+                fusion["session"]["launches"],
+            "19c: four served -fused clients, -serve-microbatch=4 "
+            "-serve-admission-hold=4, continuous":
+                fusion["served"]["continuous"]["launches"],
+            "19c: the same, -serve-batch-mode=oneshot":
+                fusion["served"]["oneshot"]["launches"],
+        },
+        "syncs_per_iteration_19b": fusion["session"]["loop_syncs"] / max(
+            max(fusion["session"]["iterations"]), 1),
+        "batched_shapes": {
+            f"K={K} x 10k x 100": {
+                k: v for k, v in fusion["k1"][K].items()
+                if k in ("ms", "solo_ms", "plain_ms", "bound_ms",
+                         "bound_by")
+            } for K in BATCH_KS
+        },
+        "max_abs_err": 0.0,
+        "ms": fusion["k1"][4]["ms"],
+        "plain_ms": fusion["k1"][4]["plain_ms"],
+        "bound_ms": fusion["k1"][4]["bound_ms"],
+        "bound_by": fusion["k1"][4]["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -243,11 +243,9 @@ def default_manifest() -> ContractManifest:
             ),
         ),
         goldens=(
-            # the port's daemon runs every request solo: it has no
-            # continuous batching and no residency pool (removed in
-            # review when they did no fused work on the card; ROADMAP C,
-            # "Departures on purpose"), so its serve-stats/8 document
-            # leaves out their keys and nothing else
+            # the port's daemon has no residency pool yet (serve/
+            # residency.py, ROADMAP A), so its serve-stats/8 document
+            # leaves out the residency keys and nothing else
             SchemaGolden(
                 golden="tests/data/serve_stats_schema_v8.json",
                 keysets=("top_level_keys", "lane_keys"),
@@ -255,10 +253,7 @@ def default_manifest() -> ContractManifest:
                     BuilderSpec(_D, "Daemon._core_snapshot", var="out"),
                     BuilderSpec(_D, "Daemon._stats_doc", var="doc"),
                 ),
-                omitted=(
-                    "batch_mode", "mb_occupancy", "mb_padded_slots",
-                    "microbatched", "residency",
-                ),
+                omitted=("residency",),
             ),
             SchemaGolden(
                 golden="tests/data/serve_stats_schema_v8.json",

@@ -885,22 +885,26 @@ def _run_impl(
         f_serve_microbatch = f.int(
             "serve-microbatch",
             4,
-            "Daemon: cross-request batching width. Accepted and without "
-            "effect: this package runs every request solo (batching fused "
-            "no device work on the GPU; the daemon logs this once)",
+            "Daemon: MAX OCCUPANCY of one fused device dispatch — up to "
+            "this many concurrent same-bucket requests share each "
+            "batched dispatch (1 disables; results stay byte-identical "
+            "to solo dispatches)",
         )
         f_serve_batch_mode = f.string(
             "serve-batch-mode",
             "continuous",
-            "Daemon: cross-request batching discipline, 'continuous' or "
-            "'oneshot'. Accepted and without effect: every request runs "
-            "solo",
+            "Daemon: cross-request batching discipline — 'continuous' "
+            "re-forms the fused batch at every solver chunk round "
+            "(mid-flight admission into freed slots); 'oneshot' is the "
+            "fixed-membership barrier",
         )
         f_serve_admission_hold = f.int(
             "serve-admission-hold",
             0,
-            "Daemon: batch-forming hold depth. Accepted and without "
-            "effect: every request runs solo",
+            "Daemon: hold a lane's dispatch until this many same-bucket "
+            "batchable requests are queued (or a short window expires) "
+            "— deterministic batch forming for tests and benchmarks "
+            "(0 disables)",
         )
         f_serve_slow_ms = f.float(
             "serve-slow-ms",
@@ -1269,6 +1273,8 @@ def _run_impl(
                 prewarm_shapes=f_serve_prewarm.value,
                 lanes=f_serve_lanes.value,
                 microbatch=f_serve_microbatch.value,
+                batch_mode=f_serve_batch_mode.value,
+                admission_hold=f_serve_admission_hold.value,
                 slow_ms=f_serve_slow_ms.value,
                 tenant_cap=f_serve_tenant_cap.value,
                 max_queue=f_serve_max_queue.value,
@@ -1289,10 +1295,6 @@ def _run_impl(
                 # (daemon/serve flags excluded, -no-daemon pinned)
                 watch_argv=(
                     _forward_argv(f) if f_watch.value != "" else None
-                ),
-                batching=(
-                    f_serve_microbatch.value > 1
-                    or f_serve_admission_hold.value > 0
                 ),
             ).serve_forever()
 

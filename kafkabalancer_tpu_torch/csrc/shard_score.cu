@@ -61,6 +61,12 @@
 //   launch.
 // - The kernel is specialised on the allowed mask, the colocation counts,
 //   the leader pass and kT, so the row loops test no option that is off.
+// - Instances (shard_score_batched_launch): K same-shape scoring passes in
+//   one launch. The grid's y dimension is the instance; each instance has
+//   its own inputs, outputs, key copies and finished-block count, each at
+//   the instance's stride from the first, and its own last-block fold, so
+//   each instance's bits are a solo launch's. A solo launch is the K = 1
+//   grid.
 // Each of these choices was measured against its alternative in one call
 // (scripts/kernel_ab.py, PERF.md).
 // The TPU kernel's one-hot [B, B2] matmul column selection, its every-step
@@ -114,19 +120,39 @@ struct Outs {
   int32_t *pf, *pl, *ppf, *ppl;
 };
 
-// One chunk of rows per block (score::score_rows), then the last block to
-// finish folds the key copies into the outputs. `keys` holds kKeyCopies key
-// arrays; `done` counts finished blocks; keys and done start as all-ones
-// bytes.
+// 64-bit words of scratch one instance needs: its key copies, then its
+// finished-block count.
+__host__ __device__ __forceinline__ long long scratch_words(int B, int B2) {
+  return static_cast<long long>(kKeyCopies) * score::key_columns(B, B2) + 1;
+}
+
+// One chunk of rows per block (score::score_rows), then the last block of
+// the instance to finish folds its key copies into its outputs. Instance
+// blockIdx.y reads and writes at its stride from every pointer; its scratch
+// is scratch_words(B, B2) words from `scratch` on: kKeyCopies key arrays,
+// then the count of its finished blocks, all starting as all-ones bytes.
 template <bool kAlw, bool kColo, bool kLead, int kTgt>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-score_blocks(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
+score_blocks(Args a, unsigned long long* scratch, Outs o) {
   extern __shared__ __align__(16) uint8_t s_dyn[];
   __shared__ score::TileShared ts;
   __shared__ bool s_last;
 
   const int B = a.rows.B, B2 = a.rows.B2;
   const int ncol = score::key_columns(B, B2);
+  // this instance's inputs, at its stride from the first instance's
+  const long long inst = blockIdx.y;
+  const long long ib = inst * B, ib2 = inst * B2;
+  const float* loads = a.loads + ib;
+  const float* Fv = a.F + ib;
+  const uint8_t* bvalid = a.bvalid + ib;
+  const float* scal = a.scal + inst * 3;
+  const int32_t* s_i = a.s_i + ib2;
+  const int32_t* t_i = a.t_i + ib2;
+  const uint8_t* live = a.live + ib2;
+  const long long words = scratch_words(B, B2);
+  unsigned long long* keys = scratch + inst * words;
+  unsigned int* done = reinterpret_cast<unsigned int*>(keys + words - 1);
 
   // dynamic shared memory (dyn_smem_bytes): score_rows' work area (the
   // block's target keys, the tile buffer) | head [B] | next [B2] | t_i [B2] |
@@ -139,26 +165,34 @@ score_blocks(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
   float* s_F = s_loads + B;
   uint8_t* s_bvalid = reinterpret_cast<uint8_t*>(s_F + B);
 
-  // a local copy: a reference to the kernel parameter would move it to
-  // local memory
-  const score::Rows rows = a.rows;
+  // a local copy (a reference to the kernel parameter would move it to
+  // local memory), moved to this instance's rows
+  score::Rows rows = a.rows;
+  {
+    const long long pr = inst * rows.P;
+    rows.replicas += pr * rows.R;
+    rows.cols += pr * 5;
+    rows.member += pr * B;
+    if (rows.allowed) rows.allowed += pr * B;
+    if (rows.crows) rows.crows += pr * B;
+  }
   const int r0 = blockIdx.x * a.chunk;
   const int r1 = min(rows.P, r0 + a.chunk);
-  const float avg = a.scal[0], minrep = a.scal[1], lam = a.scal[2];
+  const float avg = scal[0], minrep = scal[1], lam = scal[2];
   for (int b = threadIdx.x; b < B; b += kThreads) {
     s_head[b] = -1;
-    s_loads[b] = a.loads[b];
-    s_F[b] = a.F[b];
-    s_bvalid[b] = a.bvalid[b];
+    s_loads[b] = loads[b];
+    s_F[b] = Fv[b];
+    s_bvalid[b] = bvalid[b];
   }
-  for (int c = threadIdx.x; c < B2; c += kThreads) s_t[c] = a.t_i[c];
+  for (int c = threadIdx.x; c < B2; c += kThreads) s_t[c] = t_i[c];
   __syncthreads();
   // chain the live pair columns by hot broker; the order within a chain is
   // free: every column of a chain is offered the same candidates, and the
   // keys' minimum does not depend on the order of the offers
   for (int c = threadIdx.x; c < B2; c += kThreads) {
-    const int s = a.s_i[c];
-    if (a.live[c] && s >= 0 && s < B) s_next[c] = atomicExch(&s_head[s], c);
+    const int s = s_i[c];
+    if (live[c] && s >= 0 && s < B) s_next[c] = atomicExch(&s_head[s], c);
   }
 
   const score::Table tb{s_loads, s_F, s_bvalid, s_head, s_next, s_t,
@@ -186,13 +220,13 @@ score_blocks(Args a, unsigned long long* keys, unsigned int* done, Outs o) {
     int32_t r;
     score::unpack(k, v, r);
     if (j < B) {
-      o.vf[j] = v; o.pf[j] = r;
+      o.vf[ib + j] = v; o.pf[ib + j] = r;
     } else if (j < 2 * B) {
-      o.vl[j - B] = v; o.pl[j - B] = r;
+      o.vl[ib + j - B] = v; o.pl[ib + j - B] = r;
     } else if (j < 2 * B + B2) {
-      o.vpf[j - 2 * B] = v; o.ppf[j - 2 * B] = r;
+      o.vpf[ib2 + j - 2 * B] = v; o.ppf[ib2 + j - 2 * B] = r;
     } else {
-      o.vpl[j - 2 * B - B2] = v; o.ppl[j - 2 * B - B2] = r;
+      o.vpl[ib2 + j - 2 * B - B2] = v; o.ppl[ib2 + j - 2 * B - B2] = r;
     }
   }
 }
@@ -203,10 +237,11 @@ int dyn_smem_bytes(int tile, int B, int B2, int R, bool has_allowed) {
          9 * B;
 }
 
+// K instances; the blocks that fit the card at once are shared out among
+// them
 template <bool kAlw, bool kColo, bool kLead, int kTgt>
-cudaError_t launch_blocks(Args a, unsigned long long* keys,
-                          unsigned int* done, const Outs& o, int n_sm,
-                          cudaStream_t st) {
+cudaError_t launch_blocks(Args a, unsigned long long* scratch, const Outs& o,
+                          int n_sm, int K, cudaStream_t st) {
   auto kernel = score_blocks<kAlw, kColo, kLead, kTgt>;
   const int B = a.rows.B, B2 = a.rows.B2;
   const int max_rows = score::max_tile(B, a.rows.R, kAlw);
@@ -226,16 +261,15 @@ cudaError_t launch_blocks(Args a, unsigned long long* keys,
     cached_smem = smem;
   }
   const score::Split sp =
-      score::split_rows(a.rows.P, cached_per_sm * n_sm, max_rows);
+      score::split_rows(a.rows.P, cached_per_sm * n_sm / K, max_rows);
   a.chunk = sp.chunk;
   a.tile = sp.tile;
-  kernel<<<sp.blocks, kThreads, smem, st>>>(a, keys, done, o);
+  kernel<<<dim3(sp.blocks, K), kThreads, smem, st>>>(a, scratch, o);
   return cudaGetLastError();
 }
 
-using LaunchBlocks = cudaError_t (*)(Args, unsigned long long*,
-                                     unsigned int*, const Outs&, int,
-                                     cudaStream_t);
+using LaunchBlocks = cudaError_t (*)(Args, unsigned long long*, const Outs&,
+                                     int, int, cudaStream_t);
 // indexed by (B > kTgt2MaxB) << 3 | allowed << 2 | colocation << 1 | leader
 const LaunchBlocks kLaunchBlocks[16] = {
     launch_blocks<false, false, false, 2>, launch_blocks<false, false, true, 2>,
@@ -274,27 +308,30 @@ div_check(const float* avgs, unsigned long long* bad) {
 
 extern "C" {
 
-// 64-bit words of scratch a launch needs: the key copies, then the
-// finished-block count.
+// 64-bit words of scratch a launch needs per instance: the key copies, then
+// the finished-block count.
 long long shard_score_scratch_words(int B, int B2) {
-  return static_cast<long long>(kKeyCopies) * score::key_columns(B, B2) + 1;
+  return scratch_words(B, B2);
 }
 
-// Launch the pass on `stream` with shard_score_scratch_words(B, B2) words
-// of `scratch`. Returns the first CUDA error (0 = cudaSuccess); nothing is
-// synchronised.
-int shard_score_launch(
+// Launch the pass over K instances on `stream` with K *
+// shard_score_scratch_words(B, B2) words of `scratch`. Every input and
+// output holds the K instances one after another (replicas [K, P, R], ...,
+// vf [K, B]); allowed and crows are null for all of them or for none.
+// Returns the first CUDA error (0 = cudaSuccess); nothing is synchronised.
+int shard_score_batched_launch(
     const int32_t* replicas, const float* cols, const uint8_t* member,
     const uint8_t* allowed, const float* crows, const float* loads,
     const float* F, const uint8_t* bvalid, const float* scal,
     const int32_t* s_i, const int32_t* t_i, const uint8_t* live,
-    int P, int R, int B, int B2, int allow_leader,
+    int K, int P, int R, int B, int B2, int allow_leader,
     unsigned long long* scratch,
     float* vf, int32_t* pf, float* vl, int32_t* pl,
     float* vpf, int32_t* ppf, float* vpl, int32_t* ppl,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long words = shard_score_scratch_words(B, B2);
+  if (K < 1 || K > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long words = scratch_words(B, B2) * K;
   cudaError_t err =
       cudaMemsetAsync(scratch, 0xFF, sizeof(*scratch) * words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -309,9 +346,27 @@ int shard_score_launch(
   Outs o{vf, vl, vpf, vpl, pf, pl, ppf, ppl};
   const int variant = (B > kTgt2MaxB ? 8 : 0) | (allowed ? 4 : 0) |
                       (crows ? 2 : 0) | (allow_leader ? 1 : 0);
-  return static_cast<int>(kLaunchBlocks[variant](
-      a, scratch, reinterpret_cast<unsigned int*>(scratch + words - 1), o,
-      n_sm, st));
+  return static_cast<int>(
+      kLaunchBlocks[variant](a, scratch, o, n_sm, K, st));
+}
+
+// Launch the pass on `stream` with shard_score_scratch_words(B, B2) words
+// of `scratch`: the one-instance grid. Returns the first CUDA error (0 =
+// cudaSuccess); nothing is synchronised.
+int shard_score_launch(
+    const int32_t* replicas, const float* cols, const uint8_t* member,
+    const uint8_t* allowed, const float* crows, const float* loads,
+    const float* F, const uint8_t* bvalid, const float* scal,
+    const int32_t* s_i, const int32_t* t_i, const uint8_t* live,
+    int P, int R, int B, int B2, int allow_leader,
+    unsigned long long* scratch,
+    float* vf, int32_t* pf, float* vl, int32_t* pl,
+    float* vpf, int32_t* ppf, float* vpl, int32_t* ppl,
+    void* stream) {
+  return shard_score_batched_launch(
+      replicas, cols, member, allowed, crows, loads, F, bvalid, scal, s_i,
+      t_i, live, 1, P, R, B, B2, allow_leader, scratch, vf, pf, vl, pl, vpf,
+      ppf, vpl, ppl, stream);
 }
 
 // The division check: bad[j] = the number of finite float32 x whose

@@ -15,6 +15,13 @@ does around its Pallas kernel.
 There is no fallback between the two. The kernel is built with ``nvcc``
 into a shared library with a plain C interface at first use
 (:mod:`kafkabalancer_tpu_torch.ops.nvcc`) and loaded with ``ctypes``.
+
+:func:`shard_score_batched` scores K same-shape instances stacked on a
+leading axis in ONE launch (the grid's y dimension is the instance),
+each instance's outputs bit for bit a solo launch's; its plain version
+:func:`shard_score_batched_plain` is a loop over
+:func:`shard_score_plain`. The instance-batched session
+(``solvers/scan.py`` ``session_batched``) calls it every iteration.
 """
 
 from __future__ import annotations
@@ -41,12 +48,13 @@ def pack_cols(
     """The session-static per-partition vectors as one ``[P, 5]`` input
     in the weights' dtype (w | ncur | ntgt | ncons | pvalid); every value
     is exact in float32 (weights are float32 there, the rest small
-    integers)."""
+    integers). Leading dimensions are instances (``[K, P]`` inputs give
+    ``[K, P, 5]``)."""
     dtype = weights.dtype
     return torch.stack(
         [weights, nrep_cur.to(dtype), nrep_tgt.to(dtype), ncons.to(dtype),
          pvalid.to(dtype)],
-        dim=1,
+        dim=-1,
     )
 
 
@@ -146,6 +154,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     I = ctypes.c_int
     lib.shard_score_launch.argtypes = [P] * 12 + [I] * 5 + [P] * 10
     lib.shard_score_launch.restype = I
+    lib.shard_score_batched_launch.argtypes = [P] * 12 + [I] * 6 + [P] * 10
+    lib.shard_score_batched_launch.restype = I
     lib.shard_score_scratch_words.argtypes = [I, I]
     lib.shard_score_scratch_words.restype = ctypes.c_longlong
     lib.shard_score_div_check.argtypes = [P, I, P, P]
@@ -175,51 +185,60 @@ def _launch(
     replicas: Tensor, cols: Tensor, member: Tensor, allowed: Optional[Tensor],
     loads: Tensor, F: Tensor, bvalid: Tensor, scal: Tensor, s_i: Tensor,
     t_i: Tensor, live: Tensor, c_rows: Optional[Tensor], allow_leader: bool,
+    K: Optional[int] = None,
 ) -> Tuple[Tensor, ...]:
-    P, R = replicas.shape
-    B = member.shape[1]
-    B2 = s_i.shape[0]
+    """One launch over ``K`` instances stacked on a leading axis, or over
+    one instance without that axis (``K`` None)."""
+    lead: Tuple[int, ...] = () if K is None else (K,)
+    n = len(lead)
+    P, R = replicas.shape[n:]
+    B = member.shape[n + 1]
+    B2 = s_i.shape[n]
     f32, i32 = kernel_dtype(), torch.int32
-    _check(replicas, "replicas", i32, (P, R))
-    _check(cols, "cols", f32, (P, 5))
-    _check(member, "member", torch.bool, (P, B))
+    _check(replicas, "replicas", i32, lead + (P, R))
+    _check(cols, "cols", f32, lead + (P, 5))
+    _check(member, "member", torch.bool, lead + (P, B))
     if allowed is not None:
-        _check(allowed, "allowed", torch.bool, (P, B))
+        _check(allowed, "allowed", torch.bool, lead + (P, B))
     if c_rows is not None:
-        _check(c_rows, "c_rows", f32, (P, B))
-    _check(loads, "loads", f32, (B,))
-    _check(F, "F", f32, (B,))
-    _check(bvalid, "bvalid", torch.bool, (B,))
-    _check(scal, "scal", f32, (3,))
-    _check(s_i, "s_i", i32, (B2,))
-    _check(t_i, "t_i", i32, (B2,))
-    _check(live, "live", torch.bool, (B2,))
+        _check(c_rows, "c_rows", f32, lead + (P, B))
+    _check(loads, "loads", f32, lead + (B,))
+    _check(F, "F", f32, lead + (B,))
+    _check(bvalid, "bvalid", torch.bool, lead + (B,))
+    _check(scal, "scal", f32, lead + (3,))
+    _check(s_i, "s_i", i32, lead + (B2,))
+    _check(t_i, "t_i", i32, lead + (B2,))
+    _check(live, "live", torch.bool, lead + (B2,))
     if len({t.device for t in (replicas, member, loads, s_i)}) != 1:
         raise ValueError("shard_score: inputs on different devices")
 
     lib = _load()
     dev = loads.device
-    # scratch, cleared by the launch: copies of one 64-bit (value, row) key
-    # per output column, then the kernel's count of finished blocks
+    # scratch, cleared by the launch: per instance, copies of one 64-bit
+    # (value, row) key per output column, then the kernel's count of
+    # finished blocks
     scratch = torch.empty(
-        lib.shard_score_scratch_words(B, B2), dtype=torch.int64, device=dev
+        (K or 1) * lib.shard_score_scratch_words(B, B2), dtype=torch.int64,
+        device=dev,
     )
-    vf, vl = torch.empty(B, dtype=f32, device=dev), torch.empty(B, dtype=f32, device=dev)
-    pf, pl_ = torch.empty(B, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev)
-    vpf = torch.empty(B2, dtype=f32, device=dev)
-    vpl = torch.empty(B2, dtype=f32, device=dev)
-    ppf = torch.empty(B2, dtype=i32, device=dev)
-    ppl = torch.empty(B2, dtype=i32, device=dev)
+    vf = torch.empty(lead + (B,), dtype=f32, device=dev)
+    vl = torch.empty(lead + (B,), dtype=f32, device=dev)
+    pf = torch.empty(lead + (B,), dtype=i32, device=dev)
+    pl_ = torch.empty(lead + (B,), dtype=i32, device=dev)
+    vpf = torch.empty(lead + (B2,), dtype=f32, device=dev)
+    vpl = torch.empty(lead + (B2,), dtype=f32, device=dev)
+    ppf = torch.empty(lead + (B2,), dtype=i32, device=dev)
+    ppl = torch.empty(lead + (B2,), dtype=i32, device=dev)
 
     def ptr(t: Optional[Tensor]) -> Optional[int]:
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.shard_score_launch(
+        err = lib.shard_score_batched_launch(
             ptr(replicas), ptr(cols), ptr(member), ptr(allowed), ptr(c_rows),
             ptr(loads), ptr(F), ptr(bvalid), ptr(scal), ptr(s_i), ptr(t_i),
-            ptr(live), P, R, B, B2, int(bool(allow_leader)),
+            ptr(live), K or 1, P, R, B, B2, int(bool(allow_leader)),
             ptr(scratch),
             ptr(vf), ptr(pf), ptr(vl), ptr(pl_), ptr(vpf), ptr(ppf),
             ptr(vpl), ptr(ppl), stream,
@@ -227,7 +246,7 @@ def _launch(
     if err != 0:
         msg = lib.shard_score_error_string(err).decode()
         raise RuntimeError(f"shard_score kernel launch failed: {msg} ({err})")
-    nvcc.count_launch(shard_score)
+    nvcc.count_launch(shard_score if K is None else shard_score_batched)
     return vf, pf, vl, pl_, vpf, ppf, vpl, ppl
 
 
@@ -286,3 +305,74 @@ def shard_score(
 
 
 shard_score.launches = 0  # type: ignore[attr-defined]
+
+
+def shard_score_batched_plain(
+    replicas: Tensor,
+    cols: Tensor,
+    member: Tensor,
+    allowed: Optional[Tensor],
+    loads: Tensor,
+    F: Tensor,
+    bvalid: Tensor,
+    scal: Tensor,
+    s_i: Tensor,
+    t_i: Tensor,
+    live: Tensor,
+    c_rows: Optional[Tensor] = None,
+    *,
+    allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """:func:`shard_score_plain` over ``K`` instances stacked on a leading
+    axis (every input ``[K, ...]``), one instance after another; the eight
+    outputs stacked the same way."""
+    outs = [
+        shard_score_plain(
+            replicas[k], cols[k], member[k],
+            None if allowed is None else allowed[k], loads[k], F[k],
+            bvalid[k], scal[k], s_i[k], t_i[k], live[k],
+            None if c_rows is None else c_rows[k], allow_leader=allow_leader,
+        )
+        for k in range(loads.shape[0])
+    ]
+    return tuple(torch.stack(list(col)) for col in zip(*outs))
+
+
+# device-loop: the batched scoring kernel's wrapper, called by every iteration of the instance-batched session
+def shard_score_batched(
+    replicas: Tensor,
+    cols: Tensor,
+    member: Tensor,
+    allowed: Optional[Tensor],
+    loads: Tensor,
+    F: Tensor,
+    bvalid: Tensor,
+    scal: Tensor,
+    s_i: Tensor,
+    t_i: Tensor,
+    live: Tensor,
+    c_rows: Optional[Tensor] = None,
+    *,
+    allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """One scoring pass over ``K`` same-shape instances stacked on a
+    leading axis (``replicas [K, P, R]``, ..., ``live [K, B2]``; the
+    outputs ``[K, B]`` / ``[K, B2]``): instance ``k``'s outputs are
+    :func:`shard_score` of instance ``k``'s inputs, bit for bit.
+
+    CPU tensors take :func:`shard_score_batched_plain`; CUDA tensors make
+    ONE kernel launch for all ``K`` (float32 only; anything it does not
+    take raises). ``shard_score_batched.launches`` counts kernel
+    launches."""
+    if loads.device.type == "cpu":
+        return shard_score_batched_plain(
+            replicas, cols, member, allowed, loads, F, bvalid, scal, s_i,
+            t_i, live, c_rows, allow_leader=allow_leader,
+        )
+    return _launch(
+        replicas, cols, member, allowed, loads, F, bvalid, scal, s_i, t_i,
+        live, c_rows, allow_leader, K=loads.shape[0],
+    )
+
+
+shard_score_batched.launches = 0  # type: ignore[attr-defined]

@@ -10,8 +10,10 @@ before it plans. The daemon keeps all of that resident:
   an idle-timeout shutdown, and a pidfile/socket liveness handshake;
 - ``lanes`` — one worker lane per GPU (bucket-affinity routing, work
   stealing, a per-lane row cache, the lane watchdog and mesh-exclusive
-  ``-fused-shard`` runs). Every request runs solo: the reference's
-  continuous batching is not carried over (``lanes`` says why);
+  ``-fused-shard`` runs) and cross-request batching: a lane's
+  concurrent same-bucket ``-fused`` requests share one instance-batched
+  session (``-serve-microbatch``, ``-serve-batch-mode``,
+  ``-serve-admission-hold``);
 - ``client`` — the forwarding client embedded in the CLI (no torch, no
   numpy): every invocation forwards its parsed flags and input to a live
   daemon of this package and falls back to the in-process path,

@@ -16,10 +16,11 @@ Structure:
   liveness handshakes immediately and enqueues ``plan`` requests;
 - a dispatcher: the single-lane :class:`Coalescer` (``-serve-lanes=1``,
   or one device) that serializes planning, or the multi-lane
-  ``LaneScheduler`` (serve/lanes.py) with one lane per GPU. Every
-  request runs solo, as its own session (serve/lanes.py says why this
-  package does not batch requests). Each request runs on its own named
-  thread (``serve-req-N``) so its spans render on their own track;
+  ``LaneScheduler`` (serve/lanes.py) with one lane per GPU, which
+  fuses a lane's concurrent same-bucket ``-fused`` requests into one
+  instance-batched session (``_admissible_request`` predicts which
+  requests may join). Each request runs on its own named thread
+  (``serve-req-N``) so its spans render on their own track;
 - request coalescing: when requests queue up concurrently, the
   dispatcher probes each waiting request's shape bucket
   (``ops.runtime.prefetch_hints``) and drains all same-bucket requests
@@ -171,8 +172,8 @@ class PlanRequest:
 
     __slots__ = (
         "argv", "stdin", "done", "response", "bucket", "bucketed",
-        "t_submit", "session_ctx", "tenant", "deadline", "started",
-        "internal", "trace",
+        "mb_entered", "t_submit", "session_ctx", "tenant", "deadline",
+        "started", "internal", "trace",
     )
 
     def __init__(
@@ -188,6 +189,7 @@ class PlanRequest:
         self.response: Optional[Dict[str, Any]] = None
         self.bucket: Optional[BucketKey] = None
         self.bucketed = False  # probe memo (None is a valid "no bucket")
+        self.mb_entered = False  # joined its batcher's barrier
         self.t_submit: Optional[float] = None  # queue-wait hist anchor
         # resident-session context (serve/sessions.py
         # PlanSessionContext) for the protocol-v2 session ops
@@ -421,6 +423,8 @@ class Daemon:
         devices: Optional[Sequence[Any]] = None,
         lanes: int = 1,
         microbatch: int = 1,
+        batch_mode: str = "continuous",
+        admission_hold: int = 0,
         slow_ms: float = 0.0,
         flight_dir: str = "",
         session_cap: int = 64,
@@ -437,7 +441,6 @@ class Daemon:
         watch_emit: str = "",
         watch_poll: float = 5.0,
         watch_argv: Optional[List[str]] = None,
-        batching: bool = False,
         prewarm_shapes: str = "",
     ) -> None:
         self.socket_path = socket_path
@@ -463,14 +466,17 @@ class Daemon:
         # lanes: 1 = the single-lane Coalescer; 0/negative = one lane per
         # device; N>1 = min(N, devices)
         self.lanes = lanes
-        # microbatch (-serve-microbatch): above 1 the lane scheduler is
-        # kept even on one lane, as in the reference, whose single-lane
-        # fusion lives there; here its lane still runs every request solo
+        # microbatch (-serve-microbatch): the most concurrent same-bucket
+        # requests one batcher fuses (1 disables); above 1 the lane
+        # scheduler is kept even on one lane, whose batching lives there.
+        # batch_mode: "continuous" re-forms the fused batch at every
+        # solver chunk round, "oneshot" runs fixed-membership barriers.
+        # admission_hold: deterministic batch forming — a lane holds its
+        # pop until this many batchable requests are queued (or a short
+        # window expires); 0 disables. serve/lanes.py
         self.microbatch = max(1, microbatch)
-        # cross-request batching was asked for (-serve-microbatch > 1 or
-        # -serve-admission-hold): this package runs every request solo
-        # (serve/lanes.py) — logged once at start, answers unchanged
-        self.batching = batching
+        self.batch_mode = batch_mode
+        self.admission_hold = max(0, admission_hold)
         self._log: LogFn = log or (
             lambda msg: print(msg, file=sys.stderr, flush=True)
         )
@@ -551,7 +557,7 @@ class Daemon:
         self.watchdog_s = max(0.0, watchdog_s)
         self.faults_spec = faults_spec
         self._admission = AdmissionController(
-            window=4,
+            window=max(4, 2 * self.microbatch, self.admission_hold),
             max_queue=max_queue,
             tenant_inflight=tenant_inflight,
             parallel=1,
@@ -750,6 +756,7 @@ class Daemon:
         req: PlanRequest,
         coalesced: bool,
         lane: Optional[Any] = None,
+        mb: Optional[Any] = None,
     ) -> None:
         from kafkabalancer_tpu_torch import cli
 
@@ -864,6 +871,9 @@ class Daemon:
                 "serve.lane": float(lane.index),
                 "serve.lane_busy_s": s["lane_busy_s"],
                 "serve.steals": s["steals"],
+                "serve.microbatched": s["microbatched"],
+                "serve.mb_occupancy_max": s["occupancy_max"],
+                "serve.mb_padded_slots": s["padded_slots"],
                 "serve.cache_hits": s["cache_hits"],
             })
             mem0 = device_memory_stats(lane.device)
@@ -879,11 +889,21 @@ class Daemon:
             )
 
         def refresh() -> Dict[str, Any]:
-            # re-snapshot the lane's device memory when the request ends
+            # re-snapshot at export time (cli.run calls this when the
+            # request ends): the scheduler's batching gauges, after this
+            # request's own fused dispatches committed (the batcher's
+            # sink runs before member responses release), and the lane's
+            # device memory
+            out2: Dict[str, Any] = {}
+            sched2 = self._coalescer
+            if hasattr(sched2, "stats"):
+                s2 = sched2.stats()
+                out2["serve.mb_occupancy_max"] = s2["occupancy_max"]
+                out2["serve.mb_padded_slots"] = s2["padded_slots"]
             mem2 = device_memory_stats(lane.device)
-            if mem2 is None:
-                return {}
-            return {"serve.device_bytes_in_use": float(mem2["bytes_in_use"])}
+            if mem2 is not None:
+                out2["serve.device_bytes_in_use"] = float(mem2["bytes_in_use"])
+            return out2
 
         # the request's device: its lane's; the single-lane Coalescer
         # plans on the daemon's first device (None: the CLI's default,
@@ -925,6 +945,13 @@ class Daemon:
                     # lane's, and the mutation tap mirrors every
                     # applied move into the session's raw shadow
                     st.enter_context(ctx.activate())
+                if mb is not None:
+                    # join the lane's batcher on THIS thread (it is
+                    # thread-local): the chunks this request's sessions
+                    # offer may run fused with its peers', on the thread
+                    # of whichever member completes a round — every one
+                    # of them under its lane's device and stream
+                    st.enter_context(mb.member(req))
                 try:
                     rc_box.append(
                         cli.run(
@@ -973,6 +1000,12 @@ class Daemon:
                         f"serve: request {seq} crashed "
                         "(see traceback above)"
                     )
+                if mb is not None and not req.mb_entered:
+                    # the body died BEFORE joining its batcher's barrier
+                    # (lane-context entry failure): release the slot, or
+                    # the healthy peers stall at the barrier until its
+                    # timeout
+                    mb.abandon()
                 req.response = {
                     "v": PROTO_VERSION,
                     "ok": False,
@@ -1196,11 +1229,20 @@ class Daemon:
             self._handle_plan,
             self._bucket_of,
             self._lanes,
+            microbatch=self.microbatch,
+            admissible=self._admissible_request,
+            batch_mode=self.batch_mode,
+            admission_hold=self.admission_hold,
             watchdog_s=self.watchdog_s,
             exclusive=self._mesh_exclusive_request,
         )
-        # the admission window scales with the real lane count
-        self._admission.set_window(max(4, 2 * len(self._lanes)))
+        # the admission window scales with the real lane count: each
+        # lane can batch up to `microbatch` members and should have a
+        # queued same-bucket feed for mid-flight admission
+        self._admission.set_window(max(
+            4, self.admission_hold,
+            2 * self.microbatch * len(self._lanes),
+        ))
         self._admission.set_parallel(len(self._lanes))
         # concurrent request bodies share the daemon-lifetime registry:
         # a per-request reset would wipe an in-flight peer's attribution.
@@ -1211,8 +1253,45 @@ class Daemon:
         self._log(
             f"serve: {n_lanes} device lane{'s' if n_lanes != 1 else ''} "
             f"({', '.join(str(ln.device) for ln in self._lanes)})"
+            + (
+                f", {self.batch_mode} batching up to {self.microbatch}"
+                if self.microbatch > 1
+                else ""
+            )
         )
         return scheduler
+
+    @staticmethod
+    def _admissible_request(req: PlanRequest) -> bool:
+        """ADMISSION prediction: will this request's planning reach the
+        fusible dispatch (``scan.session_batched``: the batched move
+        session, torch engine)? Only such requests join a lane's batcher
+        (serve/lanes.py ``LaneScheduler._run_group``). Conservative on
+        purpose: a false negative costs a missed fusion, a false
+        positive stalls the batch's live peers until it completes."""
+        if req.internal is not None:
+            # idle speculative/watch work must never couple its
+            # lifetime to a live request's fused batch
+            return False
+        if _argv_value(req.argv, "fused") != "true":
+            return False
+        if _argv_value(req.argv, "rebalance-leader") == "true":
+            return False
+        # the move session at batch 1, the polish alternation and the
+        # colocation objective do not run batched: they decline here
+        # instead of stalling their peers (a value that does not parse
+        # raises, which the scheduler reads as not admissible)
+        if _argv_value(req.argv, "fused-polish") == "true":
+            return False
+        if float(_argv_value(req.argv, "anti-colocation") or 0) > 0:
+            return False
+        if int(_argv_value(req.argv, "fused-batch") or 2) <= 1:
+            return False
+        engine = _argv_value(req.argv, "fused-engine") or "auto"
+        return (
+            engine in ("auto", "xla")
+            and _argv_value(req.argv, "fused-shard") != "true"
+        )
 
     @staticmethod
     def _mesh_exclusive_request(req: PlanRequest) -> bool:
@@ -1325,6 +1404,10 @@ class Daemon:
             # mesh-exclusive runs (-fused-shard: drained the fleet and
             # owned every device for the dispatch)
             out["mesh_exclusive"] = int(s.get("mesh_exclusive", 0))
+            out["microbatched"] = int(s["microbatched"])
+            out["batch_mode"] = self.batch_mode
+            out["mb_occupancy"] = sched.occupancy_hist()
+            out["mb_padded_slots"] = int(s["padded_slots"])
             out["lane_busy_s"] = [
                 round(ln.busy_s, 3) for ln in self._lanes
             ]
@@ -1490,6 +1573,7 @@ class Daemon:
             "ts_epoch": round(time.time(), 3),
             **self._core_snapshot(),
         }
+        doc["batch_mode"] = self.batch_mode
         doc["hists"] = obs.metrics.hist_snapshot()
         doc["tenants"] = self._tenants_block()
         doc["flight"] = self.flight.stats()
@@ -2378,13 +2462,6 @@ class Daemon:
                     )
                     + ")"
                 )
-            if self.batching:
-                self._log(
-                    "serve: -serve-microbatch, -serve-batch-mode and "
-                    "-serve-admission-hold have no effect in this "
-                    "package; every request runs solo"
-                )
-
             if self.warm:
                 # the dispatcher is built on the warm thread (torch
                 # import, CUDA context, kernel load) so the accept loop

@@ -33,10 +33,18 @@ sessions with pair-swap phases (``solvers/polish.py``), and
 ``leader.SWAP_SLOT`` entries. ``anti_colocation=λ`` runs the batched
 session (and polish) on the combined objective ``u + λ·colocations``
 with per-(topic, broker) counts as session state.
+
+:func:`session_batched` runs K independent batched move sessions as one
+(the counterpart of the reference's ``session_packed_batched``): one
+host loop, one launch of the batched scoring kernel for all K per
+iteration, one read of the K accepted counts. The planning daemon's
+batchers (serve/lanes.py) reach it through the seam in
+:func:`_run_chunk` (:func:`set_microbatcher`).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -65,7 +73,11 @@ from kafkabalancer_tpu_torch.ops.cost import (
 )
 from kafkabalancer_tpu_torch.ops.runtime import next_bucket
 from kafkabalancer_tpu_torch.ops.tensorize import all_allowed_of, tensorize, to_device
-from kafkabalancer_tpu_torch.parallel.shard_kernel import pack_cols, shard_score
+from kafkabalancer_tpu_torch.parallel.shard_kernel import (
+    pack_cols,
+    shard_score,
+    shard_score_batched,
+)
 
 Tensor = torch.Tensor
 
@@ -710,6 +722,321 @@ def session(
     return rep.clone(), loads, n, mp, mslot, msrc, mtgt, final_su
 
 
+def _pair_frame_k(loads: Tensor, bvalid: Tensor) -> Tuple[Tensor, ...]:
+    """:func:`~kafkabalancer_tpu_torch.ops.cost.pair_frame` of each row of
+    ``loads [K, B]``: ``(s_i, t_i, live)``, each ``[K, B2]``."""
+    K, B = loads.shape
+    B2 = max(1, B // 2)
+    nb_i = bvalid.sum(1)
+    sort_load = torch.where(bvalid, loads, torch.full_like(loads, float("inf")))
+    perm = torch.sort(sort_load, dim=1, stable=True).indices
+    i2 = torch.arange(B2, device=loads.device)[None, :]
+    live = i2 < (nb_i // 2)[:, None]
+    zero = torch.zeros_like(live, dtype=perm.dtype)
+    s_at = (nb_i[:, None] - 1 - i2).clamp(0, B - 1)
+    s_i = torch.where(live, perm.gather(1, s_at), zero)
+    t_i = torch.where(live, perm.gather(1, i2.clamp(max=B - 1).expand(K, B2)),
+                      zero)
+    return s_i, t_i, live
+
+
+def _rows_of(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[k, idx[k]]`` for ``x [K, P, ...]`` and ``idx [K, N]``."""
+    tail = x.shape[2:]
+    return x.gather(
+        1, idx.reshape(idx.shape + (1,) * len(tail)).expand(idx.shape + tail)
+    )
+
+
+def _batch_pool_k(
+    loads: Tensor, bvalid: Tensor, nb: Tensor, rep: Tensor, mem: Tensor,
+    allowed: Optional[Tensor], cols: Tensor, minrep: Tensor,
+    score: Callable[..., Tuple[Tensor, ...]], *, allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """:func:`batch_pool` of each of ``K`` instances (every input with a
+    leading instance axis), with one call of the batched scorer: each
+    instance's pool has the bits of a :func:`batch_pool` call on it
+    (element-wise expressions term for term, every reduction per instance
+    in the same order)."""
+    K, P, R = rep.shape
+    B = loads.shape[1]
+    dev = loads.device
+    inf = float("inf")
+    # pool_frame
+    zero = torch.zeros_like(loads)
+    avg = ordered_sum(torch.where(bvalid, loads, zero), 1) / nb
+    F = torch.where(bvalid, overload_penalty(loads, avg[:, None]), zero)
+    s_i, t_i, live = _pair_frame_k(loads, bvalid)
+    su = ordered_sum(F, 1)
+    # rows_pool
+    weights = cols[..., 0]
+    nrep_cur = cols[..., 1]
+    vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
+        rep, cols, mem, allowed, loads, F, bvalid,
+        torch.stack([avg, minrep, torch.zeros_like(minrep)], 1),
+        s_i.to(torch.int32), t_i.to(torch.int32), live, c_rows=None,
+        allow_leader=allow_leader,
+    )
+    pf = pf.long()
+    slot_iota = torch.arange(R, device=dev)[None, None, :]
+    rowsA = (
+        overload_penalty(
+            loads[:, None, :] - weights.gather(1, pf)[:, :, None],
+            avg[:, None, None],
+        )
+        - F[:, None, :]
+    )  # [K, B, B]
+    slot_vals = rowsA.gather(2, _rows_of(rep, pf).clamp(min=0).long())
+    valids = (slot_iota >= 1) & (slot_iota < nrep_cur.gather(1, pf)[:, :, None])
+    slot_f = torch.where(
+        valids, slot_vals, torch.full_like(slot_vals, inf)
+    ).argmin(2)
+    if allow_leader:
+        lead_better = vl < vf  # strict: follower wins ties
+        vals_t = torch.where(lead_better, vl, vf)
+        p_t = torch.where(lead_better, pl_.long(), pf)
+        slot_t = torch.where(lead_better, torch.zeros_like(slot_f), slot_f)
+    else:
+        vals_t, p_t, slot_t = vf, pf, slot_f
+    # pair_finish
+    ppf = ppf.long()
+    hit = (
+        (_rows_of(rep, ppf) == s_i[:, :, None].to(rep.dtype))
+        & (slot_iota >= 1)
+        & (slot_iota < nrep_cur.gather(1, ppf)[:, :, None])
+    )
+    slot_pf = torch.where(
+        hit, slot_iota, torch.full_like(slot_iota, R)
+    ).argmin(2)
+    vals_p, p_p, slot_p = vpf, ppf, slot_pf
+    if allow_leader:
+        lead_better = vpl < vals_p  # strict: follower wins ties
+        vals_p = torch.where(lead_better, vpl, vals_p)
+        p_p = torch.where(lead_better, ppl.long(), p_p)
+        slot_p = torch.where(lead_better, torch.zeros_like(slot_p), slot_p)
+    vals_p = torch.where(live, vals_p, torch.full_like(vals_p, inf))
+    vals_raw = torch.cat([vals_t, vals_p], 1)
+    p = torch.cat([p_t, p_p], 1)
+    slot = torch.cat([slot_t, slot_p], 1)
+    s_t = _rows_of(rep, p_t).gather(2, slot_t[:, :, None])[:, :, 0].long()
+    s_ = torch.cat([s_t, s_i], 1)
+    # finish_pool
+    t = torch.cat([torch.arange(B, device=dev)[None, :].expand(K, B), t_i], 1)
+    w_p = weights.gather(1, p)
+    w_k = torch.where(
+        slot == 0,
+        w_p * (nrep_cur.gather(1, p).to(weights.dtype)
+               + cols[..., 3].gather(1, p)),
+        w_p,
+    )
+    return su[:, None] + vals_raw, p, slot, s_, t, w_k, avg, su
+
+
+def _prefix_accept_k(
+    vals: Tensor, p: Tensor, s_: Tensor, t: Tensor, w_k: Tensor,
+    loads: Tensor, avg: Tensor, su: Tensor, mu: Tensor, churn_gate: Tensor,
+    n: Tensor, batch: int, budget: Tensor, max_moves: int,
+) -> Tuple[Tensor, Tensor]:
+    """:func:`prefix_accept` of each of ``K`` instances (candidates ``[K,
+    N]``, ``loads [K, B]``; ``avg``, ``su``, ``mu``, ``n`` and ``budget``
+    ``[K]``): no reduction crosses the instance axis. Returns ``(ok,
+    pos)``."""
+    dtype = loads.dtype
+    N = vals.shape[1]
+    kk = torch.arange(N, device=vals.device)
+    su_ = su[:, None]
+    improving = (
+        torch.isfinite(vals) & (vals < (su - mu)[:, None]) & (vals < su_)
+    )
+    best_gain = su - vals.amin(1)
+    improving &= (su_ - vals) * churn_gate >= best_gain[:, None]
+
+    E = (vals[:, :, None] < vals[:, None, :]) | (
+        (vals[:, :, None] == vals[:, None, :]) & (kk[:, None] < kk[None, :])
+    )
+    claimed = E & improving[:, :, None] & (p[:, :, None] == p[:, None, :])
+    surv = improving & ~claimed.any(1)
+
+    Ej = (E & surv[:, :, None]).to(dtype)
+    wEj = Ej * w_k[:, :, None]
+    to_s = (t[:, :, None] == s_[:, None, :]).to(dtype) - (
+        s_[:, :, None] == s_[:, None, :]
+    ).to(dtype)
+    to_t = (t[:, :, None] == t[:, None, :]).to(dtype) - (
+        s_[:, :, None] == t[:, None, :]
+    ).to(dtype)
+    Ls = loads.gather(1, s_) + ordered_sum(wEj * to_s, 1)
+    Lt = loads.gather(1, t) + ordered_sum(wEj * to_t, 1)
+    a = avg[:, None]
+    d_k = (
+        overload_penalty(Ls - w_k, a)
+        - overload_penalty(Ls, a)
+        + overload_penalty(Lt + w_k, a)
+        - overload_penalty(Lt, a)
+    )
+    ok = surv & (d_k < -mu[:, None]) & (d_k < 0)
+    ok &= ~(E & (surv & ~ok)[:, :, None]).any(1)
+    pos = n[:, None] + (E & ok[:, :, None]).sum(1)
+    ok &= (
+        (pos < n[:, None] + batch) & (pos < budget[:, None]) & (pos < max_moves)
+    )
+    return ok, pos
+
+
+# device-loop: the K sessions' shared host loop, one designed read per iteration
+def session_batched(
+    loads: Tensor,
+    replicas: Tensor,
+    member: Tensor,
+    allowed: Optional[Tensor],
+    weights: Tensor,
+    nrep_cur: Tensor,
+    nrep_tgt: Tensor,
+    ncons: Tensor,
+    pvalid: Tensor,
+    always_valid: Tensor,
+    universe_valid: Tensor,
+    min_replicas: List[int],
+    min_unbalance: List[float],
+    budget: List[int],
+    *,
+    max_moves: int,
+    allow_leader: bool,
+    batch: int,
+    scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+) -> Tuple[Tensor, List[int], List[float]]:
+    """``K`` independent batched move sessions (:func:`session` at ``batch
+    > 1``) as one: every tensor of :func:`session` with a leading instance
+    axis ``[K, ...]`` (one device, one dtype), and each instance's
+    ``min_replicas``, ``min_unbalance`` and move ``budget`` in a list.
+
+    One host loop runs them together. Each iteration makes one launch of
+    the batched scoring kernel (``shard_score_batched``; ``scorer``
+    replaces it, e.g. with ``shard_score_batched_plain``) and one read of
+    the ``[K]`` accepted counts. An instance that has stopped (a count of
+    0, or its budget reached) commits nothing more: its acceptance mask
+    is cleared on the device while the loop runs on for the others.
+    Every float reduction stays within its instance, in :func:`session`'s
+    order, so each instance's moves are bit for bit those of a
+    :func:`session` call on it alone.
+
+    Returns ``(packed, iterations, seconds)``: the packed move logs ``[K,
+    3 * max_moves + 1]`` in :func:`_run_chunk`'s layout (``move_p |
+    move_slot | move_tgt | n``, int32), each instance's iteration count
+    (those of its solo session) and the loop's seconds until it stopped.
+    The inputs are not modified.
+    """
+    if batch <= 1:
+        raise ValueError("session_batched requires batch > 1")
+    K, P, R = replicas.shape
+    B = loads.shape[1]
+    dtype = loads.dtype
+    dev = loads.device
+    score = shard_score_batched if scorer is None else scorer
+    def on_device(values: List[Any], dt: Any) -> Tensor:
+        # filled on the device (no copy from the host, no sync); each
+        # value rounded to ``dt`` as scalar() rounds it
+        return torch.stack(
+            [torch.full((), v, dtype=dt, device=dev) for v in values]
+        )
+
+    mu = on_device(list(min_unbalance), dtype)
+    minrep = on_device(list(min_replicas), dtype)
+    cg = torch.full((), DEFAULT_CHURN_GATE, dtype=dtype, device=dev)
+    budgets = list(budget)
+    budget_t = on_device(budgets, torch.long)
+    inst = torch.arange(K, device=dev)[:, None]
+
+    # session state, updated in place; one trash element past the end of
+    # the flattened replicas and membership takes every rejected write
+    loads = loads.clone()
+    rep_buf = torch.cat([replicas.reshape(-1), replicas.new_full((1,), -1)])
+    rep = rep_buf[: K * P * R].view(K, P, R)
+    mem_buf = torch.cat([member.reshape(-1), member.new_zeros(1)])
+    mem = mem_buf[: K * P * B].view(K, P, B)
+    bcount = (mem & pvalid[:, :, None]).sum(1).to(torch.int32)
+    # move logs rows p | slot | src | tgt, trash column at max_moves
+    log = torch.full((K, 4, max_moves + 1), -1, dtype=torch.long, device=dev)
+    log_row = (inst[:, :, None] * 4 + torch.arange(4, device=dev)[None, :, None]
+               ) * (max_moves + 1)
+    cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
+    n_dev = torch.zeros(K, dtype=torch.long, device=dev)
+    # which instances still run; the host keeps the same mask
+    n = [0] * K
+    live = [b > 0 and max_moves > 0 for b in budgets]
+    active = budget_t > 0
+    iters = [0] * K
+    seconds = [0.0] * K
+
+    def step() -> Tensor:  # device-loop: one iteration of the K sessions
+        bvalid = (always_valid | (bcount > 0)) & universe_valid
+        nb = bvalid.sum(1).to(dtype)
+        vals, p, slot, s_, t, w_k, avg, su = _batch_pool_k(
+            loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
+            allow_leader=allow_leader,
+        )
+        ok, pos = _prefix_accept_k(
+            vals, p, s_, t, w_k, loads, avg, su, mu, cg, n_dev, batch,
+            budget_t, max_moves,
+        )
+        ok &= active[:, None]
+        cnt = ok.sum(1)
+        # commit; rejected candidates add zeros
+        delta = w_k * ok.to(dtype)
+        flat_s = (s_ + inst * B).reshape(-1)
+        flat_t = (t + inst * B).reshape(-1)
+        lf = loads.view(-1)
+        scatter_add_(lf, flat_s, -delta.reshape(-1))
+        scatter_add_(lf, flat_t, delta.reshape(-1))
+        oki = ok.to(torch.int32).reshape(-1)
+        bf = bcount.view(-1)
+        scatter_add_(bf, flat_s, -oki)
+        scatter_add_(bf, flat_t, oki)
+        logpos = torch.where(ok, pos, max_moves)
+        log.view(-1).index_put_(
+            ((log_row + logpos[:, None, :]).reshape(-1),),
+            torch.where(
+                ok[:, None, :], torch.stack([p, slot, s_, t], 1),
+                torch.full_like(log[:, :, :1], -1),
+            ).reshape(-1),
+        )
+        # rejected candidates write to the trash element
+        rep_buf.index_put_(
+            (torch.where(ok, inst * (P * R) + p * R + slot, K * P * R)
+             .reshape(-1),),
+            t.to(rep_buf.dtype).reshape(-1),
+        )
+        mem_buf.index_fill_(
+            0, torch.where(ok, inst * (P * B) + p * B + s_, K * P * B)
+            .reshape(-1), False,
+        )
+        mem_buf.index_fill_(
+            0, torch.where(ok, inst * (P * B) + p * B + t, K * P * B)
+            .reshape(-1), True,
+        )
+        n_dev.add_(cnt)
+        active.logical_and_(
+            (cnt > 0) & (n_dev < budget_t) & (n_dev < max_moves)
+        )
+        return cnt
+
+    t0 = time.perf_counter()
+    while any(live):
+        # jaxlint: disable=R3 — the designed read: the [K] accepted counts end the iteration
+        cnts = step().tolist()
+        now = time.perf_counter() - t0
+        for k in range(K):
+            if not live[k]:
+                continue
+            iters[k] += 1
+            seconds[k] = now
+            n[k] += cnts[k]
+            live[k] = cnts[k] > 0 and n[k] < budgets[k] and n[k] < max_moves
+    mp, mslot, _msrc, mtgt = log[:, :, :max_moves].to(torch.int32).unbind(1)
+    n_t = on_device(n, torch.int32)[:, None]
+    return torch.cat([mp, mslot, mtgt, n_t], 1), iters, seconds
+
+
 def _cfg_broker_mask(dp: Any, cfg: RebalanceConfig) -> "np.ndarray":
     """Dense mask of the configured always-in-table brokers
     (``cfg.Brokers`` zero-fill, steps.go:150-155)."""
@@ -717,6 +1044,29 @@ def _cfg_broker_mask(dp: Any, cfg: RebalanceConfig) -> "np.ndarray":
     for bid in cfg.brokers or []:
         mask[dp.broker_index(bid)] = True
     return mask
+
+
+# --- the serve batching seam ---------------------------------------------
+# A lane of the planning daemon (serve/lanes.py) fuses concurrent
+# same-bucket requests into one instance-batched session
+# (:func:`session_batched`). The fusion point is here: each member's
+# request thread installs its batcher, and _run_chunk offers the batcher
+# every chunk — the round boundary continuous batching re-forms the
+# batch at. Thread-local, so the stateless CLI and a solo request never
+# see it.
+_mb_tls = threading.local()
+
+
+def set_microbatcher(mb: Optional[Any]) -> None:
+    """Install (or, with None, clear) THIS thread's batcher — an object
+    with ``dispatch(args, statics)`` returning ``(packed move log,
+    iterations, seconds)`` for this caller's chunk, or None to run it
+    solo."""
+    _mb_tls.mb = mb
+
+
+def microbatcher() -> Optional[Any]:
+    return getattr(_mb_tls, "mb", None)
 
 
 def _run_chunk(
@@ -745,7 +1095,10 @@ def _run_chunk(
 
     A SPECULATIVE daemon run (serve/speculate.py) checks its preemption
     flag here, once per chunk round: real traffic aborts idle plan-ahead
-    work before the next chunk reaches the device."""
+    work before the next chunk reaches the device. A thread with a
+    batcher (:func:`set_microbatcher`) then offers the chunk — its
+    device tensors, its scalars and its signature — for a fused run; a
+    declined offer runs solo."""
     from kafkabalancer_tpu_torch.serve.speculate import maybe_abort_dispatch
 
     maybe_abort_dispatch()
@@ -767,6 +1120,28 @@ def _run_chunk(
             lam=lam, n_topics=next_bucket(max(1, len(dp.topics)), 64),
         )
     obs.metrics.count("solver.chunks")
+    mb = microbatcher()
+    if mb is not None:
+        fused = mb.dispatch(
+            (loads, d.replicas, d.member, d.allowed, *common),
+            dict(
+                P=dp.replicas.shape[0], B=B, R=dp.replicas.shape[1],
+                dtype=str(dtype), all_allowed=all_allowed,
+                max_moves=max_moves,
+                allow_leader=cfg.allow_leader_rebalancing,
+                batch=max(1, batch), mode=mode, engine=engine,
+                n_topics=colo.get("n_topics", 0), device=str(device),
+                scorer=scorer is not None,
+            ),
+        )
+        if fused is not None:
+            packed, iters, seconds = fused
+            obs.metrics.count("solver.microbatched_chunks")
+            # this request's own session counters: its iterations in the
+            # fused loop are those of its solo session
+            obs.metrics.count("solver.session_seconds", seconds)
+            obs.metrics.count("solver.session_iterations", iters)
+            return packed
     with obs.span(
         "solver.dispatch_chunk", max_moves=max_moves, batch=batch,
         engine=engine, mode=mode,

@@ -569,7 +569,7 @@ PORT_SEEDS = {
     "omitted_key_emitted_again": (
         f"{PKG}/serve/daemon.py",
         "replace:out: Dict[str, Any] = {"
-        "|out: Dict[str, Any] = {\n            \"microbatched\": 0,",
+        "|out: Dict[str, Any] = {\n            \"residency\": {},",
         ["R9"],
     ),
     "unreasoned_device_loop_marker": (

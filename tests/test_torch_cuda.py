@@ -15,6 +15,10 @@ the IEEE division for every finite float32 x at a few avgs. The torch
 session with the scoring kernel must emit the same plan as with the plain
 scorer, and
 ``plan(engine="pallas")`` the same plan as ``engine="pallas-interpret"``.
+The batched scoring kernel (one launch over K instances) equals K solo
+launches and its plain version; the instance-batched session equals solo
+sessions; a daemon's fused round on the card answers each member's
+in-process plan.
 """
 
 import numpy as np
@@ -655,8 +659,7 @@ def test_served_plan_on_the_card_matches_in_process(cuda_device, tmp_path,
     local = _cli(args + ["-no-daemon"], device=cuda_device)
     want = counter.launches
     assert local[0] == 0 and want > 0
-    with running_daemon(devices=[cuda_device], lanes=0,
-                        batching=True) as (sock, d, logs):
+    with running_daemon(devices=[cuda_device], lanes=0) as (sock, d, logs):
         counter.launches = 0
         served = _cli(args + [f"-serve-socket={sock}"])
         got = counter.launches
@@ -681,8 +684,7 @@ def test_served_concurrent_on_the_card_matches_solo_plans(cuda_device, tmp_path)
     want = [_cli(args + [f"-input={p}", "-no-daemon"], device=cuda_device)
             for p in paths]
     want_launches = sk.shard_score.launches
-    with running_daemon(devices=[cuda_device], lanes=0,
-                        batching=True) as (sock, d, _logs):
+    with running_daemon(devices=[cuda_device], lanes=0) as (sock, d, _logs):
         sk.shard_score.launches = 0
         got = [None, None]
 
@@ -723,8 +725,8 @@ def test_speculative_memo_on_the_card(cuda_device, tmp_path, engine):
     args = ["-input-json", f"-input={path}", "-fused", "-fused-batch=100",
             "-max-reassign=1", "-min-unbalance=1e-7",
             f"-fused-engine={engine}"]
-    with running_daemon(devices=[cuda_device], lanes=0, speculate=True,
-                        batching=True) as (sock, d, _logs):
+    with running_daemon(devices=[cuda_device], lanes=0,
+                        speculate=True) as (sock, d, _logs):
         for rnd in range(3):
             want = _cli(args + ["-no-daemon"], device=cuda_device)
             hits0 = d.speculator.stats()["hits"]
@@ -755,3 +757,126 @@ def test_speculative_memo_on_the_card(cuda_device, tmp_path, engine):
     assert made.get(kernel, 0) > 0, made
     assert st["attempts"] == st["hits"] + st["misses"] + st["poisoned"] + (
         st["memos"])
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+@pytest.mark.parametrize("colo", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_batched_kernel_matches_solo_launches_and_plain(
+    cuda_device, K, allow_leader, colo, restricted
+):
+    """One launch of the batched scoring kernel over K instances: each
+    instance's eight outputs equal a solo launch's and the plain
+    version's, with zero tolerance; one launch counted."""
+    per = [synthetic(300, 20, cuda_device, seed) for seed in range(K)]
+    args = [[a[0], a[1], a[2], a[3] if restricted else None, *a[4:11],
+             a[11] if colo else None] for a in per]
+    st = [None if args[0][j] is None
+          else torch.stack([x[j] for x in args]).contiguous()
+          for j in range(12)]
+    n0 = sk.shard_score_batched.launches
+    got = sk.shard_score_batched(*st[:11], c_rows=st[11],
+                                 allow_leader=allow_leader)
+    assert sk.shard_score_batched.launches == n0 + 1
+    ref = sk.shard_score_batched_plain(*st[:11], c_rows=st[11],
+                                       allow_leader=allow_leader)
+    torch.cuda.synchronize()
+    for k, a in enumerate(args):
+        solo = sk.shard_score(*a[:11], c_rows=a[11],
+                              allow_leader=allow_leader)
+        for x, y, z in zip(got, solo, ref):
+            assert torch.equal(x[k], y) and bool((x[k] == z[k]).all())
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_session_batched_on_the_card_matches_solo_sessions(
+    cuda_device, allow_leader
+):
+    """Three distinct clusters of one bucket (one with budget 0): the
+    instance-batched session's logs equal three solo sessions' byte for
+    byte, with one batched launch per iteration and no solo launch."""
+    from kafkabalancer_tpu_torch.ops.cost import broker_loads
+    from kafkabalancer_tpu_torch.ops.tensorize import (
+        all_allowed_of,
+        tensorize,
+        to_device,
+    )
+
+    ins = []
+    for seed in (11, 12, 13):
+        pl = synth_cluster(3000, 60, rf=3, seed=seed)
+        c = cfg(allow_leader)
+        scan._settle_head(pl, c, 10 ** 6)
+        dp = tensorize(pl, c)
+        d = to_device(dp, torch.device(cuda_device), torch.float32,
+                      all_allowed=all_allowed_of(dp))
+        loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons,
+                             dp.bvalid.shape[0])
+        always = torch.from_numpy(scan._cfg_broker_mask(dp, c)).to(
+            cuda_device)
+        ins.append((loads, d.replicas, d.member, d.allowed, d.weights,
+                    d.nrep_cur, d.nrep_tgt, d.ncons, d.pvalid, always,
+                    d.bvalid))
+    budgets, mus = [4000, 0, 4000], [1e-7, 1e-7, 1e-3]
+    solo = []
+    for k in range(3):
+        _r, _l, n, mp, msl, _ms, mt, _su = scan.session(
+            *ins[k], 2, mus[k], budgets[k], max_moves=4096,
+            allow_leader=allow_leader, batch=100)
+        solo.append(torch.cat([mp, msl, mt, torch.tensor(
+            [n], dtype=torch.int32, device=mp.device)]).cpu())
+    stacked = [None if ins[0][j] is None
+               else torch.stack([x[j] for x in ins]) for j in range(11)]
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    packed, iters, _secs = scan.session_batched(
+        *stacked, [2] * 3, mus, budgets, max_moves=4096,
+        allow_leader=allow_leader, batch=100)
+    assert sk.shard_score.launches == 0
+    assert sk.shard_score_batched.launches == max(iters)
+    assert iters[1] == 0
+    for k in range(3):
+        assert torch.equal(packed[k].cpu(), solo[k]), k
+
+
+def test_served_fused_round_on_the_card(cuda_device, tmp_path):
+    """Two held same-bucket -fused clients of a daemon with
+    -serve-microbatch=2 -serve-admission-hold=2 on the card: one fused
+    round, each plan its in-process plan, batched launches only."""
+    import threading
+
+    from torch_helpers import running_daemon
+
+    paths = [_cluster_file(str(tmp_path), seed) for seed in (8, 9)]
+    args = ["-input-json", "-fused", "-fused-batch=100",
+            "-max-reassign=100000", "-min-unbalance=1e-7"]
+    sk.shard_score.launches = 0
+    want = []
+    for p in paths:
+        n0 = sk.shard_score.launches
+        want.append(_cli(args + [f"-input={p}", "-no-daemon"],
+                         device=cuda_device))
+        want[-1] = want[-1] + (sk.shard_score.launches - n0,)
+    with running_daemon(devices=[cuda_device], lanes=0, microbatch=2,
+                        admission_hold=2) as (sock, d, _logs):
+        d._coalescer._hold_window_s = 120.0
+        sk.shard_score.launches = 0
+        sk.shard_score_batched.launches = 0
+        got = [None, None]
+
+        def client(i):
+            got[i] = _cli(args + [f"-input={paths[i]}",
+                                  f"-serve-socket={sock}"])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        doc = d._core_snapshot()
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    assert doc["microbatched"] == 2 and doc["mb_occupancy"] == {"2": 1}
+    assert sk.shard_score.launches == 0
+    assert 0 < sk.shard_score_batched.launches <= max(w[-1] for w in want)

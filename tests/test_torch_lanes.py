@@ -97,7 +97,7 @@ def test_affinity_and_least_loaded_routing():
     handled = []
     lock = threading.Lock()
 
-    def handle(req, coalesced, lane):
+    def handle(req, coalesced, lane, mb=None):
         if req.argv[0].startswith("block"):
             release.wait(30)
         with lock:
@@ -143,7 +143,7 @@ def test_idle_lane_steals_distinct_bucket_work():
     handled = []
     lock = threading.Lock()
 
-    def handle(req, coalesced, lane):
+    def handle(req, coalesced, lane, mb=None):
         if req.argv[0].startswith("block"):
             release.wait(30)
         with lock:
@@ -198,7 +198,7 @@ def test_mesh_exclusive_drains_and_holds():
     handled = []
     lock = threading.Lock()
 
-    def handle(req, coalesced, lane):
+    def handle(req, coalesced, lane, mb=None):
         name = req.argv[0]
         if name == "block":
             release_block.wait(30)
@@ -284,8 +284,7 @@ def test_served_concurrent_fused_on_two_cpu_lanes(cluster_files, monkeypatch):
     assert [w[:2] for w in want] == [r[:2] for r in ref]
     solo_sessions = len(sessions)
     sessions.clear()
-    with running_daemon(devices=["cpu", "cpu"], lanes=0,
-                        batching=True) as (sock, d, _logs):
+    with running_daemon(devices=["cpu", "cpu"], lanes=0) as (sock, d, _logs):
         results = [None] * 4
 
         def client(i):
@@ -418,3 +417,25 @@ def test_dispatcher_class_matches_the_reference(
     single = lanes == 1 or (min(ndev, lanes if lanes > 0 else ndev) <= 1
                             and microbatch <= 1)
     assert chosen[1][0] == ("Coalescer" if single else "LaneScheduler")
+
+
+def test_quarantined_fleet_answer_keeps_the_admission_identity():
+    """A request that passed admission while every lane is quarantined
+    (a crashed worker's restart holds its lane quarantined for a moment)
+    is answered with a quarantine shed and never begins handling: it
+    counts as abandoned, so the chaos replay's ``admitted == requests +
+    abandoned`` holds."""
+    with running_daemon(lanes=0, microbatch=2) as (_sock, d, _logs):
+        sched = d._coalescer
+        assert isinstance(sched, LaneScheduler)
+        sched.lanes[0].quarantined = True
+        try:
+            resp = d._dispatch_plan(PlanRequest(["-input-json"], "{}"))
+        finally:
+            sched.lanes[0].quarantined = False
+        assert resp["op"] == "overload" and resp["reason"] == "quarantine"
+        snap = d._core_snapshot()
+        adm, lh = snap["admission"], snap["lane_health"]
+        assert adm["admitted"] == 1
+        assert snap["requests"] == 0 and lh["abandoned"] == 1
+        assert adm["admitted"] == snap["requests"] + lh["abandoned"]

@@ -78,7 +78,7 @@ def cpu_daemon():
     """One CPU-lane daemon with the CLI's defaults (-serve-lanes=0,
     -serve-microbatch=4, which asks for batching) for the module's
     parity tests."""
-    with running_daemon(lanes=0, microbatch=4, batching=True) as (
+    with running_daemon(lanes=0, microbatch=4) as (
         sock, d, logs
     ):
         yield sock, d, logs
@@ -288,27 +288,106 @@ def test_speculation_and_edge_cache_flags_are_accepted(sock_dir, monkeypatch):
             assert bool(entries) is cached, (extra, entries)
 
 
-def test_batching_flags_are_accepted_and_every_request_runs_solo(cpu_daemon):
+def test_batching_flags_take_effect(sock_dir, monkeypatch):
     """-serve-microbatch, -serve-batch-mode and -serve-admission-hold
-    parse on the client, forward, and change no answer; a daemon asked
-    for batching logs once that it runs every request solo, and one CPU
-    device with -serve-microbatch above 1 keeps the one-lane scheduler,
-    as the reference's daemon does."""
+    configure the daemon exactly as the reference's flags configure its
+    daemon (an unknown batch mode exits 3 in both), the client path
+    answers ``-no-daemon``'s plan with any of them, and one CPU device
+    with -serve-microbatch above 1 keeps the one-lane scheduler, which
+    fuses two held same-bucket ``-fused`` requests into one round — as
+    the reference's daemon does on one device."""
+    import jax
+
+    import kafkabalancer_tpu.serve.daemon as jdmod
+    import kafkabalancer_tpu_torch.serve.daemon as dmod
+    from kafkabalancer_tpu import obs as jobs
+    from kafkabalancer_tpu_torch import obs as tobs
     from kafkabalancer_tpu_torch.serve.lanes import LaneScheduler
 
-    sock, d, logs = cpu_daemon
-    assert isinstance(d._coalescer, LaneScheduler)
-    assert len(d._coalescer.lanes) == 1
-    assert sum("every request runs solo" in m for m in logs) == 1, logs
+    seen = {"jax": [], "torch": []}
+    for name, mod in (("jax", jdmod), ("torch", dmod)):
+        monkeypatch.setattr(
+            mod.Daemon, "serve_forever",
+            lambda self, name=name: seen[name].append(
+                (self.microbatch, self.batch_mode, self.admission_hold)
+            ) or 0,
+        )
+    sock = os.path.join(sock_dir, "flags.sock")
+    for extra in ([], ["-serve-microbatch=1"], ["-serve-microbatch=3"],
+                  ["-serve-batch-mode=oneshot"], ["-serve-admission-hold=4"],
+                  ["-serve-batch-mode=bogus"]):
+        argv = ["-serve", f"-serve-socket={sock}"] + extra
+        want_rc = 3 if extra and extra[-1].endswith("bogus") else 0
+        assert run_port(argv)[0] == run_jax(argv)[0] == want_rc, extra
+    assert seen["torch"] == seen["jax"] == [
+        (4, "continuous", 0), (1, "continuous", 0), (3, "continuous", 0),
+        (4, "oneshot", 0), (4, "continuous", 4),
+    ]
+    monkeypatch.undo()
+
     want = run_port(["-input-json", f"-input={FIXTURE}", "-no-daemon"])
-    for extra in (["-serve-microbatch=1"], ["-serve-batch-mode=oneshot"],
-                  ["-serve-admission-hold=4"]):
-        got = run_port(["-input-json", f"-input={FIXTURE}",
-                        f"-serve-socket={sock}"] + extra)
-        assert got[:2] == want[:2], extra
-    with running_daemon(batching=False) as (_sock, _d, quiet):
-        pass
-    assert not any("every request runs solo" in m for m in quiet), quiet
+    fused = ["-input-json", f"-input={FIXTURE}", "-fused", "-fused-batch=4",
+             "-max-reassign=4"]
+    want_fused = run_port(fused + ["-no-daemon"], device="cpu")
+    jdevs = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: list(jdevs))
+    docs = {}
+    try:
+        for name, make, fetch, run in (
+            ("jax", lambda s: JDaemon(s, warm=False, lanes=0, microbatch=4,
+                                      admission_hold=2, batch_mode="oneshot",
+                                      log=lambda _m: None),
+             jclient.fetch_stats, run_jax),
+            ("torch", lambda s: Daemon(s, warm=False, lanes=0, microbatch=4,
+                                       admission_hold=2,
+                                       batch_mode="oneshot",
+                                       devices=["cpu"], log=lambda _m: None),
+             client.fetch_stats, run_port),
+        ):
+            s = os.path.join(sock_dir, f"{name}.sock")
+            d = make(s)
+            t = threading.Thread(target=d.serve_forever, daemon=True)
+            t.start()
+            deadline = time.monotonic() + 30
+            mod = jclient if name == "jax" else client
+            while mod.daemon_alive(s) is None:
+                assert time.monotonic() < deadline, name
+                time.sleep(0.02)
+            try:
+                if name == "torch":
+                    assert isinstance(d._coalescer, LaneScheduler)
+                    assert len(d._coalescer.lanes) == 1
+                d._coalescer._hold_window_s = 30.0
+                for extra in (["-serve-microbatch=1"],
+                              ["-serve-batch-mode=oneshot"],
+                              ["-serve-admission-hold=4"]):
+                    got = run(["-input-json", f"-input={FIXTURE}",
+                               f"-serve-socket={s}"] + extra)
+                    assert got[:2] == want[:2], (name, extra)
+                out = [None, None]
+
+                def one(i, s=s, run=run):
+                    out[i] = run(fused + [f"-serve-socket={s}"])
+
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(2)]
+                for x in threads:
+                    x.start()
+                for x in threads:
+                    x.join(120)
+                assert [o[:2] for o in out] == [want_fused[:2]] * 2, name
+                docs[name] = fetch(s)
+            finally:
+                mod.request_shutdown(s)
+                t.join(60)
+    finally:
+        jobs.set_shared_registry(False)
+        tobs.set_shared_registry(False)
+    for key in ("microbatched", "mb_occupancy", "mb_padded_slots",
+                "batch_mode"):
+        assert docs["torch"][key] == docs["jax"][key], key
+    assert docs["torch"]["microbatched"] == 2
+    assert docs["torch"]["mb_occupancy"] == {"2": 1}
 
 
 # --- served parity -----------------------------------------------------------
@@ -518,7 +597,7 @@ def test_bad_frames_get_an_error_frame(cpu_daemon):
 
 
 def test_scrape_verbs(sock_dir):
-    with running_daemon(lanes=0, batching=True) as (sock, d, _logs):
+    with running_daemon(lanes=0) as (sock, d, _logs):
         _scrape_verbs(sock, d, sock_dir)
 
 

@@ -76,7 +76,7 @@ def cluster_file():
 @pytest.mark.parametrize("loop", sorted(LOOPS))
 def test_outer_loop_is_served_from_a_resident_session(cluster_file, loop):
     flags = LOOPS[loop] + [f"-input={cluster_file}"]
-    with running_daemon(lanes=0, batching=True) as (sock, d, _logs):
+    with running_daemon(lanes=0) as (sock, d, _logs):
         for rnd in range(ROUNDS):
             local = run_port(flags + ["-no-daemon"], device="cpu")
             ref = run_jax(flags + ["-no-daemon"])
@@ -94,7 +94,7 @@ def test_outer_loop_is_served_from_a_resident_session(cluster_file, loop):
 
 def test_external_change_takes_the_row_resync(cluster_file):
     flags = ["-input-json", f"-input={cluster_file}"]
-    with running_daemon(lanes=0, batching=True) as (sock, d, _logs):
+    with running_daemon(lanes=0) as (sock, d, _logs):
         run_port(flags + [f"-serve-socket={sock}"])
         # the cluster moved on its own: one partition's replicas rotated
         with open(cluster_file) as fh:
@@ -118,7 +118,7 @@ def test_external_change_takes_the_row_resync(cluster_file):
 
 def test_no_session_flag_ships_the_cluster_every_time(cluster_file):
     flags = ["-input-json", f"-input={cluster_file}", "-serve-no-session"]
-    with running_daemon(lanes=0, batching=True) as (sock, d, _logs):
+    with running_daemon(lanes=0) as (sock, d, _logs):
         for _ in range(2):
             served = run_port(flags + [f"-serve-socket={sock}"])
             assert served[:2] == run_port(flags + ["-no-daemon"],
