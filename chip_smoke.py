@@ -145,10 +145,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. The rest of the daemon with ``-serve``'s defaults (speculative
    plan-ahead on, the client edge cache on), on phase 3's cluster:
    a. the deployment loop ``-fused -fused-batch=100 -max-reassign=1
-   -min-unbalance=1e-7``, 10 rounds of fresh client processes; an applier
+   -min-unbalance=1e-7``, 5 rounds of fresh client processes; an applier
    writes each emitted move into the file and waits on the stats doc for
    a speculative memo; every round's stdout equals ``-no-daemon`` in
-   process, rounds 2-10 are memo hits, the speculation identity
+   process, rounds 2-5 are memo hits, the speculation identity
    (attempts == hits + misses + poisoned + memos) holds at every scrape;
    per round the client wall and the edge rung; the speculative runs'
    K1 launches (the daemon's per-thread launch tally) must be > 0.
@@ -180,8 +180,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    window must number the run's launches, and the device's idle share
    of the window (1 - the union of kernel, copy and fill intervals over
    the window) and the walls with and without the flags are printed. c.
-   fresh ``-no-daemon`` processes with ``-trace``, in turns with the
-   warm thread and without it (the warm daemon's latch set first): their
+   two fresh ``-no-daemon`` processes with ``-trace``, one with the warm
+   thread and one without it (the warm daemon's latch set first): their
    walls, and the first one's span breakdown (the warm thread's torch
    import and CUDA context on its own track; parse, settle, encode,
    session, emit) beside 13d's walls. d. ``python -m kafkabalancer_tpu_torch.prewarm -shapes
@@ -246,10 +246,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``mb_padded_slots`` 0, no solo K1 launch and the batched launches at
    most the longest member's in-process count; the client walls beside
    13e's.
+20. The shared residency pool and the lane's stage-ahead pipeline, on
+   13e's clusters and a daemon with -serve's defaults (one lane): a.
+   cluster 1, then clusters 2 and 3 started once cluster 1 launches K1
+   (the lane holds its turn after cluster 1 until both are queued and
+   the one staged at submit has finished staging, so the hit check
+   does not race the stage thread): every plan equal to 13e's, staged
+   requests and arrays > 0, and every lookup of a staged array a hit;
+   the staged copies' device time (events on the copy stream), their
+   bytes and, from a CUDA-activity profile of the step, how much of the
+   copy stream's time overlapped the lane stream's kernels; the client
+   walls beside 13e's. b. cluster 1's input twice: the second request
+   hits every array the first looked up. c. the stats doc's
+   ``residency`` block, the memory block's ``residency_bytes`` (equal
+   to the sum over the pooled tensors) and ``residency_entries`` (at
+   most 64), and the request line's ``serve.residency_hits`` /
+   ``serve.residency_bytes``. e. a ``-fused-engine=pallas`` request
+   through the same lane: 13c's plan. d. every pooled tensor's md5
+   still its key's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-19 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-20 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -2209,7 +2227,9 @@ def phase_serve(path, xla_plan, k1_main, pallas_plan, b2_main):
 # speculative plan-ahead on (serve/speculate.py), the client edge cache on
 # (serve/edge_cache.py) — plus the warm session tier (serve/spill.py) and
 # -watch, on phase 3's cluster
-SPEC_ROUNDS = 10
+# the script's time limit is fixed while phases are added: the loops keep
+# four memo rounds after the first
+SPEC_ROUNDS = 5
 SPEC_FLAGS = ["-fused", "-fused-batch=100", "-max-reassign=1",
               "-min-unbalance=1e-7"]
 
@@ -2834,11 +2854,11 @@ NO_WARM = (
 
 def phase_fresh_process(path, xla_plan, work):
     """15c: fresh ``-no-daemon`` processes with phase 3's flags and
-    ``-trace``, in turns with the warm thread and without it (four in
-    all): their walls, and the first one's span breakdown with the warm
-    thread's spans on their own track."""
+    ``-trace``, one with the warm thread and one without it: their
+    walls, and the first one's span breakdown with the warm thread's
+    spans on their own track."""
     walls = {"with": [], "without": []}
-    for k, mode in enumerate(("with", "without", "with", "without")):
+    for k, mode in enumerate(("with", "without")):
         tpath = os.path.join(work, f"15c_trace_{k}.json")
         args = (["-input-json", "-input", path] + MAIN_FLAGS
                 + ["-no-daemon", f"-trace={tpath}"])
@@ -2881,7 +2901,7 @@ def phase_fresh_process(path, xla_plan, work):
         f"after the last span (exit, the warm thread's join); beside phase "
         f"13d's fresh -no-daemon walls "
         f"{ {k: v for k, v in FRESH_WALLS.items() if k.startswith('13d')} }")
-    log(f"telemetry 15c [{CARD}]: fresh -no-daemon walls in turns, with the "
+    log(f"telemetry 15c [{CARD}]: fresh -no-daemon walls, with the "
         f"warm thread {walls['with']} s, without it {walls['without']} s")
     return dict(wall=first_wall, walls=walls,
                 spans={f"{t}/{n}": v for (t, n), v in first.items()
@@ -3882,6 +3902,265 @@ def phase_batching(dev, batch):
     return dict(k1=k1, session=sess, served=served)
 
 
+# phase 20: the shared residency pool (serve/residency.py) and the lane's
+# stage-ahead pipeline on the card, through a daemon with -serve's
+# defaults (one lane, the lane scheduler)
+
+
+def copy_overlap(events):
+    """From a CUDA-activity trace: ``(copies on streams that ran no
+    kernel, their summed ms, the ms of them inside a kernel interval of
+    another stream, the copy streams, the kernel streams)``."""
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    kstreams = {ev.get("args", {}).get("stream") for ev in kernels}
+    copies = [ev for ev in events if ev.get("cat") == "gpu_memcpy"
+              and ev.get("args", {}).get("stream") not in kstreams]
+    spans = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+                   for ev in kernels)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = inside = 0.0
+    for ev in copies:
+        a, b = float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])
+        total += b - a
+        inside += sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+    cstreams = {ev.get("args", {}).get("stream") for ev in copies}
+    return len(copies), total / 1e3, inside / 1e3, cstreams, kstreams
+
+
+def pooled_digest(t):
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.md5(a.reshape(-1).view(np.uint8)).digest()
+
+
+def phase_residency(path, pallas_plan, batch):
+    """Phase 20 (see the module docstring); returns the K1 and B2
+    launches of its paths and its readings."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.serve import client
+    from kafkabalancer_tpu_torch.serve.residency import DEFAULT_POOL_CAP
+    from kafkabalancer_tpu_torch.solvers import pallas_session as ps
+
+    t_phase = time.perf_counter()
+    sock_dir = tempfile.mkdtemp(prefix="kbt-")
+    work = tempfile.mkdtemp(prefix="kbt-prof-")
+    try:
+        sock = os.path.join(sock_dir, "r.sock")
+        d, t, rc_box, logs = serving_daemon(sock, microbatch=4)
+        if not d._warm_done.wait(240):
+            fail("20: the daemon never finished its warm body")
+        sched = d._coalescer
+        if len(d._lanes) != 1 or not hasattr(sched, "lanes"):
+            fail(f"20: -serve's defaults did not give one lane of the lane "
+                 f"scheduler: {logs}")
+        lane = d._lanes[0]
+        pool = lane.stage_cache
+        # the pool's traffic: lookups (thread, key, hit), puts (thread,
+        # key, pinned)
+        looks, puts = [], []
+        lookup0, put0 = pool.lookup, pool.put
+
+        def lookup(key, retain=True):
+            buf = lookup0(key, retain)
+            looks.append((threading.current_thread().name, key,
+                          buf is not None))
+            return buf
+
+        def put(key, buf, retain=True, fence=None):
+            puts.append((threading.current_thread().name, key, retain))
+            put0(key, buf, retain, fence)
+
+        pool.lookup, pool.put = lookup, put
+        # the lane's turn after cluster 1 ends once clusters 2 and 3 are
+        # queued and the stage of the one staged at submit has finished
+        handle0 = sched._handle
+        held = []
+        holding = threading.Event()
+
+        def handle(req, coalesced, ln, mb):
+            handle0(req, coalesced, ln, mb)
+            if held or holding.is_set():
+                return
+            holding.set()
+            t_hold = time.perf_counter()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and not (
+                len(sched._queues[ln.index]) >= 2 and len(ln.stage_log) >= 1
+            ):
+                time.sleep(0.005)
+            held.append(time.perf_counter() - t_hold)
+
+        sched._handle = handle
+        args = batch["fused_args"] + [f"-serve-socket={sock}"]
+        paths, wants = batch["paths"], batch["wants"]
+        snap0 = obs.metrics.snapshot()["counters"]
+
+        # 20a
+        sk.shard_score.launches = 0
+        sk.shard_score_batched.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p1 = start_client(["-input-json", "-input", paths[0]] + args)
+            # clusters 2 and 3 start once cluster 1 runs its session (or
+            # has ended and holds the lane)
+            while not (sk.shard_score.launches or holding.is_set()):
+                if time.perf_counter() - t0 > 120 or p1.poll() is not None:
+                    break
+                time.sleep(0.002)
+            t1 = time.perf_counter()
+            procs = [start_client(["-input-json", "-input", pk] + args)
+                     for pk in paths[1:3]]
+            r1 = finish_client(p1, t0, "20a cluster 1")
+            pair = finish_clients(procs, t1, "20a cluster")
+            torch.cuda.synchronize()
+        k1_a = sk.shard_score.launches + sk.shard_score_batched.launches
+        if k1_a <= 0:
+            fail("20a: the served -fused requests launched no K1")
+        for k, res in enumerate([r1] + pair):
+            if res[1] != wants[k]:
+                fail(f"20a: cluster {k + 1}'s served plan differs from 13e's")
+        snap1 = obs.metrics.snapshot()["counters"]
+        staged_reqs = (snap1.get("serve.staged_requests", 0)
+                       - snap0.get("serve.staged_requests", 0))
+        staged = [(n, key) for n, key, pinned in puts if not pinned]
+        staged_keys = {key for _n, key in staged}
+        fails = snap1.get("serve.stage_failures", 0)
+        if staged_reqs <= 0 or not staged or fails:
+            fail(f"20a: {staged_reqs} staged requests, {len(staged)} staged "
+                 f"arrays, {fails} stage failures (hold {held})")
+        staged_looks = [(n, h) for n, key, h in looks if key in staged_keys]
+        looked = {key for _n, key, _h in looks if key in staged_keys}
+        staged_misses = [n for n, h in staged_looks if not h]
+        if staged_misses or looked != staged_keys:
+            fail(f"20a: the staged request's dispatch missed its staged "
+                 f"arrays: {len(staged_misses)} misses, "
+                 f"{len(staged_keys - looked)} of {len(staged_keys)} never "
+                 f"looked up")
+        recs = list(lane.stage_log)
+        copy_ms = [r["start"].elapsed_time(r["end"]) for r in recs
+                   if r.get("start") is not None]
+        staged_bytes = sum(r["bytes"] for r in recs)
+        ppath = os.path.join(work, "20a.json")
+        prof.export_chrome_trace(ppath)
+        with open(ppath) as fh:
+            events = [ev for ev in json.load(fh)["traceEvents"]
+                      if ev.get("ph") == "X"]
+        n_copies, prof_copy_ms, overlap_ms, cstreams, kstreams = copy_overlap(
+            events)
+        if n_copies and n_copies != len(staged):
+            fail(f"20a: {n_copies} copies on kernel-free streams in the "
+                 f"profile, {len(staged)} arrays staged")
+        overlap = ("not measured (no CUDA activity in the profile)"
+                   if not events else
+                   f"{overlap_ms} ms of the copy stream's {prof_copy_ms} ms "
+                   f"({n_copies} copies on stream {sorted(cstreams)}) inside "
+                   f"kernels of stream {sorted(kstreams)}")
+        walls = [res[3] for res in pair]
+        log(f"20a [{CARD}]: clusters 1-3 served, each plan equal to 13e's; "
+            f"{staged_reqs} staged request, {len(staged)} arrays "
+            f"({staged_bytes} bytes) staged by "
+            f"{sorted({n for n, _k in staged})}, every one of its "
+            f"{len(staged_looks)} lookups a hit; the staged copies' device "
+            f"time {copy_ms} ms (events on the copy stream); overlap: "
+            f"{overlap}; lane held {held} s after cluster 1; K1 launches "
+            f"{k1_a} (shard_score + shard_score_batched); client walls of "
+            f"clusters 2 and 3 {walls} s under the CUDA-activity profiler "
+            f"(13e's four: {batch['walls']} s); cluster 1 {r1[3]} s")
+
+        # 20b
+        one = ["-input-json", "-input", paths[0]] + args
+        n0 = len(looks)
+        _rc, out1, _e, wall1, _r = run_client(one, "20b first")
+        n1 = len(looks)
+        mpath = os.path.join(work, "20b.json")
+        _rc, out2, _e, wall2, _r = run_client(
+            one + [f"-metrics-json={mpath}"], "20b second")
+        first = {key for _n, key, _h in looks[n0:n1]}
+        second = looks[n1:]
+        if out1 != wants[0] or out2 != wants[0]:
+            fail("20b: cluster 1's repeated plan differs from 13e's")
+        misses = [key for _n, key, h in second if not h]
+        if not first or misses or not first <= {k for _n, k, _h in second}:
+            fail(f"20b: the repeat missed {len(misses)} of {len(second)} "
+                 f"lookups (the first request looked up {len(first)})")
+        log(f"20b [{CARD}]: cluster 1 twice: the second request hit all "
+            f"{len(second)} of its lookups, every array the first looked up "
+            f"({len(first)}); client walls {wall1} s, {wall2} s")
+
+        # 20c
+        with open(mpath) as fh:
+            gauges = json.load(fh)["gauges"]
+        st = client.fetch_stats(sock) or {}
+        mem = (st.get("memory") or [{}])[0]
+        tensors = pool.items()
+        held_bytes = sum(x.numel() * x.element_size() for _k, x in tensors)
+        if (set(st.get("residency") or {}) != {"hits", "misses"}
+                or mem.get("residency_bytes") != held_bytes
+                or mem.get("residency_entries") != len(tensors)
+                or len(tensors) > DEFAULT_POOL_CAP
+                or "serve.residency_hits" not in gauges
+                or "serve.residency_bytes" not in gauges):
+            fail(f"20c: residency {st.get('residency')}, memory {mem} "
+                 f"against {held_bytes} bytes in {len(tensors)} entries, "
+                 f"gauges {sorted(k for k in gauges if 'residency' in k)}")
+        log(f"20c [{CARD}]: stats residency {st['residency']}, memory "
+            f"residency_bytes {mem['residency_bytes']} = the pooled tensors' "
+            f"bytes, residency_entries {mem['residency_entries']} (cap "
+            f"{DEFAULT_POOL_CAP}); the request line's serve.residency_hits "
+            f"{gauges['serve.residency_hits']}, serve.residency_bytes "
+            f"{gauges['serve.residency_bytes']}")
+
+        # 20e
+        ps.pallas_session.launches = 0
+        _rc, out, _e, wall_e, _r = run_client(
+            ["-input-json", "-input", path, "-fused", "-fused-batch=100",
+             f"-max-reassign={MAIN_REASSIGN}", "-min-unbalance=1e-7",
+             "-no-edge-cache", "-fused-engine=pallas",
+             f"-serve-socket={sock}"], "20e pallas")
+        b2_e = ps.pallas_session.launches
+        if out != pallas_plan:
+            fail("20e: the served -fused-engine=pallas plan differs from 13c's")
+        if b2_e <= 0:
+            fail(f"20e: {b2_e} pallas_session launches")
+        log(f"20e [{CARD}]: -fused-engine=pallas through the pooled lane: "
+            f"13c's plan, {b2_e} pallas_session launch, client wall {wall_e} s")
+
+        # 20d
+        changed = [key[:2] for key, x in pool.items()
+                   if pooled_digest(x) != key[2]]
+        if changed:
+            fail(f"20d: {len(changed)} pooled tensors were written: {changed}")
+        log(f"20d [{CARD}]: all {len(pool)} pooled tensors still hold the "
+            f"bytes their keys digest ({pool.device_bytes()} bytes); pool "
+            f"stats {pool.stats()}")
+        reasons = set(d._fallbacks)
+        if not reasons <= {"session_absent", "session_digest_mismatch"}:
+            fail(f"20: daemon-side fallbacks {d._fallbacks}")
+        stop_daemon(sock, d, t, rc_box, logs, 6, dict(d._fallbacks), "(20)")
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"20: phase 20 took {time.perf_counter() - t_phase} s")
+    return dict(k1=k1_a, b2=b2_e, copy_ms=copy_ms, bytes=staged_bytes,
+                overlap_ms=overlap_ms, walls=walls)
+
+
 def main() -> int:
     import torch
 
@@ -4005,6 +4284,11 @@ def main() -> int:
     fusion = phase_batching(dev, batch13)
     done(19)
 
+    # phase 20: the residency pool and the stage-ahead pipeline on 13e's
+    # clusters, each path's counts zeroed just before it
+    resid = phase_residency(cluster_path, pallas_plan, batch13)
+    done(20)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -4045,6 +4329,9 @@ def main() -> int:
             "17: plan_sharded over 2 processes (per rank)": dist_launches[0],
             "18b: -fused -fused-batch=100 under the sync monitor":
                 syncs["k1"]["launches"],
+            "20a: three served 10k x 100 -fused requests through the "
+            "pooled lane, one staged (shard_score + shard_score_batched)":
+                resid["k1"],
         },
         "syncs_per_iteration_18b": syncs["k1"]["loop_syncs"] / max(
             syncs["k1"]["iterations"], 1),
@@ -4074,6 +4361,8 @@ def main() -> int:
             "-jax-profile": tel["15b"]["launches"],
             "18b: -fused -fused-engine=pallas under the sync monitor":
                 syncs["b2"]["launches"],
+            "20e: served -fused-engine=pallas through the pooled lane":
+                resid["b2"],
         },
         "syncs_per_iteration_18b": syncs["b2"]["syncs"] / max(
             syncs["b2"]["iterations"], 1),

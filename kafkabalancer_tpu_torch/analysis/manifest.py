@@ -243,9 +243,6 @@ def default_manifest() -> ContractManifest:
             ),
         ),
         goldens=(
-            # the port's daemon has no residency pool yet (serve/
-            # residency.py, ROADMAP A), so its serve-stats/8 document
-            # leaves out the residency keys and nothing else
             SchemaGolden(
                 golden="tests/data/serve_stats_schema_v8.json",
                 keysets=("top_level_keys", "lane_keys"),
@@ -253,7 +250,6 @@ def default_manifest() -> ContractManifest:
                     BuilderSpec(_D, "Daemon._core_snapshot", var="out"),
                     BuilderSpec(_D, "Daemon._stats_doc", var="doc"),
                 ),
-                omitted=("residency",),
             ),
             SchemaGolden(
                 golden="tests/data/serve_stats_schema_v8.json",
@@ -277,7 +273,6 @@ def default_manifest() -> ContractManifest:
                 builders=(
                     BuilderSpec(_D, "Daemon._memory_snapshot", var="out"),
                 ),
-                omitted=("residency_bytes", "residency_entries"),
             ),
             SchemaGolden(
                 golden="tests/data/metrics_schema_v1.json",

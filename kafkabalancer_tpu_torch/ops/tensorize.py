@@ -23,12 +23,14 @@ Conventions:
 
 from __future__ import annotations
 
+import hashlib
 import threading
 from dataclasses import dataclass
-from typing import Any, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from kafkabalancer_tpu_torch import obs
 from kafkabalancer_tpu_torch.models import Partition, PartitionList, RebalanceConfig
 from kafkabalancer_tpu_torch.models.config import HOST_FLOAT_DTYPE
 from kafkabalancer_tpu_torch.ops.runtime import next_bucket
@@ -187,6 +189,164 @@ def set_thread_row_cache(cache: Optional[Any]) -> None:
 def row_cache() -> Optional[Any]:
     cache = getattr(_tls, "row_cache", None)
     return cache if cache is not None else _row_cache
+
+
+# The staging seam: a serve lane installs its shared residency pool
+# (serve/residency.py ResidencyPool, or any object with its lookup / put /
+# pop_fence surface) on each thread that runs the lane's work;
+# :func:`to_device` then looks every array up by content and publishes
+# what it uploads, and the lane's stage thread fills the pool ahead of
+# the next request (:func:`stage_host_arrays`). Per thread only: the
+# stateless CLI never sees a pool.
+
+
+def set_staging_cache(cache: Optional[Any]) -> None:
+    """Install (or, with None, clear) THIS thread's residency pool."""
+    _tls.stage_cache = cache
+
+
+def staging_cache() -> Optional[Any]:
+    return getattr(_tls, "stage_cache", None)
+
+
+def _device_slot(device: Any) -> str:
+    """``type:index`` of ``device`` (a bare ``cuda`` resolves to the
+    current CUDA device), the last field of a pool key: a lane is one
+    device, and a key never matches a tensor on another."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def stage_key(a: np.ndarray, device: Any) -> Tuple[Any, ...]:
+    """The pool key of host array ``a`` on ``device``: (shape, dtype
+    string, md5 digest of the bytes, device)."""
+    arr = np.ascontiguousarray(a)
+    digest = hashlib.md5(arr.reshape(-1).view(np.uint8)).digest()
+    return (arr.shape, arr.dtype.str, digest, _device_slot(device))
+
+
+# pinned host copies of staged arrays, each with the event that ends its
+# copy: a host buffer stays referenced until its copy completed
+_inflight: List[Tuple[Any, List[Any]]] = []
+_inflight_lock = threading.Lock()
+
+
+def _prune_inflight() -> None:
+    with _inflight_lock:
+        _inflight[:] = [(ev, h) for ev, h in _inflight if not ev.query()]
+
+
+def stage_host_arrays(
+    cache: Any,
+    arrays: Iterable[Optional[np.ndarray]],
+    device: Any,
+    copy_stream: Any = None,
+    record: Optional[Dict[str, Any]] = None,
+) -> int:
+    """The stage thread's half of the lane pipeline: upload each host
+    array the pool does not hold yet to ``device`` and insert it
+    UNPINNED (the stage thread serves no request; the request that reads
+    the entry pins it at lookup). Returns the number staged.
+
+    On a CUDA device the bytes travel from pinned host memory (the
+    caching host allocator's ``pin_memory``) with ``non_blocking``
+    copies on ``copy_stream``, a stream other than the lane's, so they
+    overlap the session the lane is running. Only raw bytes move there,
+    no kernel (float casts happen at use, on the lane's stream); one
+    event recorded after the copies is each entry's fence. On another
+    device the entry is an owned copy of the array. ``record``, when
+    given, receives the bytes staged and, on CUDA, a timing event pair
+    around the copies (``start``, ``end``)."""
+    import torch
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and copy_stream is None:
+        raise ValueError("stage_host_arrays: a CUDA device needs a copy stream")
+    # the host side first (digests, pinned copies), so the copies go to
+    # the copy stream back to back and its events time them alone
+    todo: List[Tuple[Tuple[Any, ...], Any]] = []
+    for a in arrays:
+        if a is None:
+            continue
+        arr = np.ascontiguousarray(a)
+        key = stage_key(arr, dev)
+        if key in cache or any(k == key for k, _ in todo):
+            continue
+        src = torch.from_numpy(arr)
+        todo.append((key, src.pin_memory() if cuda else src))
+    nbytes = sum(int(h.numel()) * h.element_size() for _k, h in todo)
+    staged: List[Tuple[Tuple[Any, ...], Any]] = []
+    start = end = None
+    if cuda and todo:
+        with torch.cuda.stream(copy_stream):
+            # allocated on the copy stream: a block it frees unused goes
+            # back to that stream's pool, ordered after its copy
+            staged = [
+                (key, torch.empty(h.shape, dtype=h.dtype, device=dev))
+                for key, h in todo
+            ]
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(copy_stream)
+            for (_key, t), (_k, host) in zip(staged, todo):
+                t.copy_(host, non_blocking=True)
+    else:
+        staged = [(key, src.clone()) for key, src in todo]
+    fence = None
+    if cuda and staged:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(copy_stream)
+        fence = end
+        _prune_inflight()
+        with _inflight_lock:
+            _inflight.append((end, [h for _k, h in todo]))
+    for key, t in staged:
+        cache.put(key, t, retain=False, fence=fence)
+    if record is not None:
+        record.update(arrays=len(staged), bytes=nbytes, start=start, end=end)
+    if staged:
+        obs.metrics.count("serve.staged_arrays", len(staged))
+        obs.metrics.count("serve.staged_bytes", nbytes)
+    return len(staged)
+
+
+# serializes a staged entry's first use: the fence is popped and waited
+# on under this lock, so a second reader on the lane's stream is queued
+# after the wait, never before it
+_fence_lock = threading.Lock()
+
+
+def _pooled(pool: Any, a: np.ndarray, device: Any) -> Any:
+    """``a`` as a tensor on ``device`` through ``pool``: the resident
+    tensor on a hit (its first use on this thread's stream waits on its
+    copy and marks the tensor used there, so the caching allocator
+    cannot hand its block out while this stream may still read it), else
+    an owned upload published to the pool."""
+    import torch
+
+    key = stage_key(a, device)
+    t = pool.lookup(key)
+    if t is None:
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        t = src.to(device)
+        if t.data_ptr() == src.data_ptr():
+            t = t.clone()  # the pool must not alias a host array
+        pool.put(key, t)
+        return t
+    if t.is_cuda:
+        with _fence_lock:
+            fence = pool.pop_fence(key)
+            if fence is not None:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(fence)
+                t.record_stream(stream)
+        if fence is not None:
+            _prune_inflight()
+    return t
 
 
 def tensorize(
@@ -389,11 +549,23 @@ def to_device(
     ``DensePlan`` arrays to the JAX functions and to their torch
     counterparts. The casts round exactly like the reference's on-device
     ``astype`` (float64 → float32, round to nearest).
+
+    With a residency pool installed on this thread (a serve lane's,
+    :func:`set_staging_cache`) each array is looked up by content and
+    an upload is published to the pool; the casts then run at use, on
+    this thread's stream. The result's tensors may be SHARED with other
+    requests (a cast to the array's own dtype returns the pooled tensor
+    itself): callers never write them in place.
     """
     import torch
 
+    pool = staging_cache()
+
     def up(a: np.ndarray, dt: Any = None) -> Any:
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if pool is None:
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        else:
+            t = _pooled(pool, a, device)
         return t if dt is None else t.to(dt)
 
     return DeviceArrays(

@@ -171,7 +171,7 @@ class PlanRequest:
     """One queued ``plan`` request plus its completion latch."""
 
     __slots__ = (
-        "argv", "stdin", "done", "response", "bucket", "bucketed",
+        "argv", "stdin", "done", "response", "bucket", "bucketed", "staged",
         "mb_entered", "t_submit", "session_ctx", "tenant", "deadline",
         "started", "internal", "trace",
     )
@@ -189,6 +189,7 @@ class PlanRequest:
         self.response: Optional[Dict[str, Any]] = None
         self.bucket: Optional[BucketKey] = None
         self.bucketed = False  # probe memo (None is a valid "no bucket")
+        self.staged = False  # lane pipelining: host-encode stage fired
         self.mb_entered = False  # joined its batcher's barrier
         self.t_submit: Optional[float] = None  # queue-wait hist anchor
         # resident-session context (serve/sessions.py
@@ -874,7 +875,11 @@ class Daemon:
                 "serve.microbatched": s["microbatched"],
                 "serve.mb_occupancy_max": s["occupancy_max"],
                 "serve.mb_padded_slots": s["padded_slots"],
+                "serve.residency_hits": s["residency_hits"],
                 "serve.cache_hits": s["cache_hits"],
+                "serve.residency_bytes": float(
+                    lane.stage_cache.device_bytes()
+                ),
             })
             mem0 = device_memory_stats(lane.device)
             if mem0 is not None:
@@ -883,6 +888,7 @@ class Daemon:
                 )
         else:
             attrs["serve.lanes"] = 1.0
+            attrs["serve.residency_hits"] = 0.0
             attrs["serve.cache_hits"] = float(
                 self.tensorize_cache.stats()["hits"]
                 + self.sessions.cache_stats()["hits"]
@@ -900,6 +906,10 @@ class Daemon:
                 s2 = sched2.stats()
                 out2["serve.mb_occupancy_max"] = s2["occupancy_max"]
                 out2["serve.mb_padded_slots"] = s2["padded_slots"]
+                out2["serve.residency_hits"] = s2["residency_hits"]
+                out2["serve.residency_bytes"] = float(
+                    lane.stage_cache.device_bytes()
+                )
             mem2 = device_memory_stats(lane.device)
             if mem2 is not None:
                 out2["serve.device_bytes_in_use"] = float(mem2["bytes_in_use"])
@@ -1230,6 +1240,7 @@ class Daemon:
             self._bucket_of,
             self._lanes,
             microbatch=self.microbatch,
+            stage=self._stage_request,
             admissible=self._admissible_request,
             batch_mode=self.batch_mode,
             admission_hold=self.admission_hold,
@@ -1302,21 +1313,86 @@ class Daemon:
         ``LaneScheduler._run_exclusive``)."""
         return _argv_value(req.argv, "fused-shard") == "true"
 
+    def _stage_request(self, req: PlanRequest, lane: Any) -> None:
+        """Host-encode stage of the lane pipeline (runs on the lane's
+        stage thread while the lane runs the request ahead): parse,
+        settle and tensorize the NEXT request — priming the lane's row
+        cache — and copy its dense arrays into the lane's residency
+        pool, digest-keyed, so the request's upload finds them resident.
+        Pure overlap: a misprediction costs only misses, and the
+        scheduler swallows a failure (``serve.stage_failures``)."""
+        if _argv_value(req.argv, "fused") != "true":
+            # host-only planning, or a solver whose device pass uploads
+            # its own arrays (-solver=tpu): nothing to stage
+            return
+        if _argv_value(req.argv, "fused-shard") == "true":
+            return  # the sharded session places its own shards
+        parsed = self._parse_request(req)
+        if parsed is None:
+            return
+        pl, brokers = parsed
+        from kafkabalancer_tpu_torch.models import default_rebalance_config
+        from kafkabalancer_tpu_torch.utils.flags import go_atoi
+
+        # the config subset that shapes settle/tensorize; a flag this
+        # prediction misses costs only the overlap (digest misses)
+        cfg = default_rebalance_config()
+        cfg.brokers = brokers
+        if _argv_value(req.argv, "allow-leader") == "true":
+            cfg.allow_leader_rebalancing = True
+        mr = _argv_value(req.argv, "min-replicas")
+        if mr is not None:
+            cfg.min_replicas_for_rebalancing = go_atoi(mr)
+        budget_raw = _argv_value(req.argv, "max-reassign")
+        budget = go_atoi(budget_raw) if budget_raw is not None else 1
+        if budget <= 0:
+            return
+        with lane.context():
+            from kafkabalancer_tpu_torch.ops.tensorize import (
+                all_allowed_of,
+                stage_host_arrays,
+                tensorize,
+            )
+            from kafkabalancer_tpu_torch.solvers.scan import _settle_head
+
+            _settle_head(pl, cfg, budget)
+            with obs.span("serve.stage_encode", lane=lane.index):
+                dp = tensorize(pl, cfg)
+            # the arrays ops.tensorize.to_device uploads for this plan
+            record: Dict[str, Any] = {}
+            staged = stage_host_arrays(
+                lane.stage_cache,
+                (
+                    dp.replicas, dp.weights, dp.nrep_cur, dp.nrep_tgt,
+                    dp.ncons, None if all_allowed_of(dp) else dp.allowed,
+                    dp.member, dp.pvalid, dp.bvalid,
+                ),
+                lane.device if lane.device is not None else "cpu",
+                lane.copy_stream(),
+                record,
+            )
+            lane.stage_log.append(record)
+        obs.metrics.count("serve.staged_requests")
+        obs.metrics.gauge("serve.last_staged_arrays", float(staged))
+
     def _memory_snapshot(self) -> List[Dict[str, Any]]:
         """Per-lane device-memory attribution: the caching allocator's
         bytes and the card's total (``serve.devmem`` — null until CUDA
-        is initialized, and on CPU lanes). One entry per lane; the
-        single-lane Coalescer reports lane 0."""
-        lanes = [(ln.index, ln.device) for ln in self._lanes] or [
-            (0, self._device0())
-        ]
+        is initialized, and on CPU lanes) plus the residency pool's
+        tensor bytes. One entry per lane; the single-lane Coalescer
+        reports lane 0 with no pool."""
+        lanes = [
+            (ln.index, ln.device, ln.stage_cache) for ln in self._lanes
+        ] or [(0, self._device0(), None)]
         out: List[Dict[str, Any]] = []
-        for index, dev in lanes:
+        for index, dev, pool in lanes:
             hbm = (device_memory_stats(dev) if dev is not None else None) or {}
             out.append({
                 "lane": index,
                 "hbm_bytes_in_use": hbm.get("bytes_in_use"),
                 "hbm_bytes_limit": hbm.get("bytes_limit"),
+                "residency_bytes": 0 if pool is None else pool.device_bytes(),
+                "residency_entries": 0 if pool is None else len(pool),
             })
         return out
 
@@ -1408,6 +1484,10 @@ class Daemon:
             out["batch_mode"] = self.batch_mode
             out["mb_occupancy"] = sched.occupancy_hist()
             out["mb_padded_slots"] = int(s["padded_slots"])
+            out["residency"] = {
+                "hits": int(s["residency_hits"]),
+                "misses": int(s["residency_misses"]),
+            }
             out["lane_busy_s"] = [
                 round(ln.busy_s, 3) for ln in self._lanes
             ]

@@ -8,7 +8,17 @@ batching.
   whose blocks spin on each other, and a second request's kernels on
   another stream must not share its SMs mid-session), and keep a
   private digest-keyed tensorize row cache (``ops.tensorize
-  .set_thread_row_cache``);
+  .set_thread_row_cache``) and a shared residency pool of device
+  tensors (serve/residency.py, ``ops.tensorize.set_staging_cache``);
+- the stage-ahead pipeline: while a lane runs request N, a stage thread
+  host-encodes the lane's next queued request (parse → settle →
+  tensorize, priming the row cache) and copies its dense arrays into the
+  lane's pool, so N+1's upload finds them resident. On a CUDA lane the
+  copies run on the lane's own COPY stream, from pinned host memory and
+  without a kernel, so they overlap N's kernels on the lane stream; the
+  first use on the lane stream waits on the copies' event. At most one
+  request per lane is staged ahead; staging is an overlap, never a
+  correctness step (a failure or a misprediction costs only misses);
 - :class:`LaneScheduler` — routes queued requests across lanes with
   shape-bucket AFFINITY (a bucket sticks to the lane whose row cache it
   primed) plus WORK STEALING when a lane's queue is empty, a lane
@@ -75,6 +85,7 @@ from kafkabalancer_tpu_torch import obs
 from kafkabalancer_tpu_torch.serve import faults
 from kafkabalancer_tpu_torch.serve.admission import overload_response
 from kafkabalancer_tpu_torch.serve.protocol import PROTO_VERSION
+from kafkabalancer_tpu_torch.serve.residency import ResidencyPool
 
 BucketKey = Tuple[int, int, int, bool]
 # handler contract (daemon._handle_plan): sets req.response, never sets
@@ -87,6 +98,8 @@ BucketFn = Callable[[Any], Optional[BucketKey]]
 # Only such requests join a batcher — a member that never offers a chunk
 # would stall its peers until its whole request completed)
 RequestPred = Callable[[Any], bool]
+# the daemon's host-encode stage of one queued request onto its lane
+StageFn = Callable[[Any, "Lane"], None]
 
 
 def probe_bucket(req: Any, bucket_of: BucketFn) -> Optional[BucketKey]:
@@ -122,12 +135,13 @@ ADMISSION_TICK_S = 0.02
 
 
 class Lane:
-    """One device lane: identity, pinned device, row cache and counters.
-    The worker thread lives in :class:`LaneScheduler`."""
+    """One device lane: identity, pinned device, row cache, residency
+    pool and counters. The worker thread lives in :class:`LaneScheduler`."""
 
     __slots__ = (
-        "index", "device", "row_cache", "busy_s", "requests",
-        "quarantined", "quarantined_at", "last_beat",
+        "index", "device", "row_cache", "stage_cache", "busy_s", "requests",
+        "quarantined", "quarantined_at", "last_beat", "stage_log",
+        "_copy_stream", "_stream_lock",
     )
 
     def __init__(self, index: int, device: Any = None) -> None:
@@ -141,38 +155,74 @@ class Lane:
         self.quarantined_at = 0.0
         self.last_beat = time.monotonic()
         self.row_cache: Any = None  # TensorizeRowCache, daemon-installed
+        # the lane's SHARED residency pool: digest-keyed device tensors
+        # uploaded once per lane, shared by every request over the same
+        # content, refcount-evicted (serve/residency.py)
+        self.stage_cache = ResidencyPool()
+        # the latest stage records (arrays, bytes and, on CUDA, the copy
+        # stream's timing events), newest last
+        self.stage_log: Deque[Dict[str, Any]] = deque(maxlen=32)
         self.busy_s = 0.0
         self.requests = 0
+        self._copy_stream: Any = None
+        self._stream_lock = threading.Lock()
+
+    def is_cuda(self) -> bool:
+        return getattr(self.device, "type", None) == "cuda"
+
+    def copy_stream(self) -> Any:
+        """The lane's copy stream (CUDA lanes; None otherwise), made on
+        first use: a stream of PyTorch's pool, non-blocking towards the
+        lane's default stream, that carries only the stage thread's
+        host-to-device copies."""
+        if not self.is_cuda():
+            return None
+        with self._stream_lock:
+            if self._copy_stream is None:
+                import torch
+
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            return self._copy_stream
 
     @contextlib.contextmanager
     def context(self) -> Iterator[None]:
         """Pin the calling thread to this lane: on a CUDA lane its device
         becomes the current device and its default stream the current
         stream (the current device and stream are per thread, so every
-        thread that runs a lane's work enters this), and tensorize uses
-        the lane's row cache."""
-        from kafkabalancer_tpu_torch.ops.tensorize import set_thread_row_cache
+        thread that runs a lane's work enters this), tensorize uses the
+        lane's row cache, and uploads go through the lane's pool."""
+        from kafkabalancer_tpu_torch.ops.tensorize import (
+            set_staging_cache,
+            set_thread_row_cache,
+        )
 
         set_thread_row_cache(self.row_cache)
+        set_staging_cache(self.stage_cache)
         try:
             with contextlib.ExitStack() as st:
-                dev = self.device
-                if dev is not None and getattr(dev, "type", None) == "cuda":
+                if self.is_cuda():
                     import torch
 
-                    st.enter_context(torch.cuda.device(dev))
+                    st.enter_context(torch.cuda.device(self.device))
                     st.enter_context(
-                        torch.cuda.stream(torch.cuda.default_stream(dev))
+                        torch.cuda.stream(torch.cuda.default_stream(self.device))
                     )
                 yield
         finally:
             set_thread_row_cache(None)
+            set_staging_cache(None)
+            # one serving thread is one in-flight request: drop its pins
+            # so a retired request's tensors become evictable
+            self.stage_cache.release_thread()
 
     def cache_stats(self) -> Dict[str, int]:
         if self.row_cache is None:
             return {"hits": 0, "misses": 0, "rows_reused": 0}
         stats: Dict[str, int] = self.row_cache.stats()
         return stats
+
+    def residency_stats(self) -> Dict[str, int]:
+        return self.stage_cache.stats()
 
 
 class _MbEntry:
@@ -467,6 +517,7 @@ class LaneScheduler:
         bucket_of: BucketFn,
         lanes: Sequence[Lane],
         microbatch: int = 1,
+        stage: Optional[StageFn] = None,
         admissible: Optional[RequestPred] = None,
         batch_mode: str = "continuous",
         admission_hold: int = 0,
@@ -477,6 +528,7 @@ class LaneScheduler:
         self._bucket_of = bucket_of
         self.lanes = list(lanes)
         self._microbatch = max(1, microbatch)
+        self._stage = stage
         self._admissible = admissible
         self._batch_mode = batch_mode
         # MESH-EXCLUSIVE predicate (daemon: -fused-shard requests): a
@@ -576,7 +628,13 @@ class LaneScheduler:
                 )
             i = self._route_locked(b)
             self._queues[i].append(req)
+            busy = self._active[i] > 0
             self._cv.notify_all()
+        if busy:
+            # the lane is running a request: stage this one ahead now,
+            # while that request's kernels run, not only when the lane
+            # next starts a group
+            self._stage_ahead(self.lanes[i])
         req.done.wait()
         return req.response or {
             "v": PROTO_VERSION, "ok": False, "error": "request dropped",
@@ -591,6 +649,7 @@ class LaneScheduler:
 
     def stats(self) -> Dict[str, float]:
         with self._cv:
+            residency = [ln.residency_stats() for ln in self.lanes]
             return {
                 "lanes": float(len(self.lanes)),
                 "steals": float(self.steals),
@@ -599,6 +658,10 @@ class LaneScheduler:
                 "padded_slots": float(self.padded_slots),
                 "solo_fast": float(self.solo_fast),
                 "occupancy_max": float(max(self._occupancy, default=0)),
+                "residency_hits": float(sum(r["hits"] for r in residency)),
+                "residency_misses": float(
+                    sum(r["misses"] for r in residency)
+                ),
                 "lane_busy_s": float(sum(ln.busy_s for ln in self.lanes)),
                 "cache_hits": float(
                     sum(ln.cache_stats()["hits"] for ln in self.lanes)
@@ -1136,9 +1199,43 @@ class LaneScheduler:
         except Exception:
             return False
 
+    def _stage_ahead(self, lane: Lane) -> None:
+        """Start the host-encode stage of this lane's NEXT queued request
+        on a stage thread. At most one stage per request (the ``staged``
+        memo on the request); a failing stage is counted and swallowed:
+        staging is an overlap, never a correctness step."""
+        if self._stage is None:
+            return
+        with self._cv:
+            q = self._queues[lane.index]
+            nxt = q[0] if q else None
+            if nxt is None or getattr(nxt, "staged", False):
+                return
+            nxt.staged = True
+        stage = self._stage
+
+        def body() -> None:  # thread-role: lane-worker
+            try:
+                stage(nxt, lane)
+            except Exception as exc:
+                obs.metrics.count("serve.stage_failures")
+                obs.metrics.event(
+                    "serve_stage_failed", lane=lane.index,
+                    error=type(exc).__name__,
+                )
+
+        try:
+            threading.Thread(
+                target=body, name=f"serve-lane-{lane.index}-stage",
+                daemon=True,
+            ).start()
+        except Exception:
+            pass  # no thread to spare: the overlap is skipped, that's all
+
     def _run_group(
         self, lane: Lane, group: List[Any], claimed: List[Any]
     ) -> None:
+        self._stage_ahead(lane)
         k = self._microbatch
         if k > 1 and len(group) > 1 and self._admissible is not None:
             # only ADMISSIBLE requests join a batcher: a member that never

@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import PkgDaemon, package, run_pkg
+from torch_helpers import PkgDaemon, one_jax_device, package, run_pkg  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "test.json")
 PKGS = ("jax", "torch")
@@ -732,22 +732,6 @@ def test_admissible_request(argv, jwant, twant):
 
 
 # --- served, against the JAX daemon -------------------------------------------
-
-
-@pytest.fixture
-def one_jax_device(monkeypatch):
-    """The JAX daemon on one CPU device (the suite's conftest makes eight
-    virtual ones): one lane, as the port's daemon has on one CPU device."""
-    import jax
-
-    devs = jax.devices()[:1]
-    monkeypatch.setattr(jax, "devices", lambda *a, **k: list(devs))
-    yield
-    from kafkabalancer_tpu import obs as jobs
-    from kafkabalancer_tpu_torch import obs as tobs
-
-    jobs.set_shared_registry(False)
-    tobs.set_shared_registry(False)
 
 
 def variant_files(d, n):

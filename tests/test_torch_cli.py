@@ -246,6 +246,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kafkabalancer_tpu_torch.parallel.sweep\n"
         "import kafkabalancer_tpu_torch.serve.daemon\n"
         "import kafkabalancer_tpu_torch.serve.lanes\n"
+        "import kafkabalancer_tpu_torch.serve.residency\n"
         "import kafkabalancer_tpu_torch.serve.sessions\n"
         "import kafkabalancer_tpu_torch.serve.cache\n"
         "import kafkabalancer_tpu_torch.serve.client\n"

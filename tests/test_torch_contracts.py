@@ -459,6 +459,8 @@ def test_reference_tree_seeded_gives_equal_findings(seed, reference_tree,
             p.write_text(text + p.read_text())
         elif how == "new":
             p.write_text(text)
+        elif how == "keep":
+            pass
         else:
             old, _, new = text.partition("|")
             src = p.read_text()
@@ -566,17 +568,31 @@ PORT_SEEDS = {
         "|out: Dict[str, Any] = {\n            \"zz_drift_probe\": 1,",
         ["R9"],
     ),
+    # the tree is unchanged; the manifest declares a key omitted that
+    # the daemon emits (PORT_SEED_MANIFESTS)
     "omitted_key_emitted_again": (
-        f"{PKG}/serve/daemon.py",
-        "replace:out: Dict[str, Any] = {"
-        "|out: Dict[str, Any] = {\n            \"residency\": {},",
-        ["R9"],
+        f"{PKG}/serve/daemon.py", "keep:", ["R9"],
     ),
     "unreasoned_device_loop_marker": (
         f"{PKG}/solvers/zfixture.py", "new:def f():  # device-loop:\n"
         "    pass\n", ["SUP"],
     ),
 }
+
+
+def _omit_residency(m):
+    """The shipped manifest with the stats doc's ``residency`` key
+    declared omitted again."""
+    return dataclasses.replace(m, goldens=tuple(
+        dataclasses.replace(g, omitted=("residency",))
+        if "top_level_keys" in g.keysets and g.golden.endswith(
+            "serve_stats_schema_v8.json")
+        else g
+        for g in m.goldens
+    ))
+
+
+PORT_SEED_MANIFESTS = {"omitted_key_emitted_again": _omit_residency}
 
 
 @pytest.mark.parametrize("seed", sorted(PORT_SEEDS))
@@ -591,12 +607,17 @@ def test_port_tree_seeded_violation_is_found(seed, port_tree, tmp_path):
             p.write_text(text + p.read_text())
         elif how == "new":
             p.write_text(text)
+        elif how == "keep":
+            pass
         else:
             old, _, new = text.partition("|")
             src = p.read_text()
             assert src.count(old) == 1
             p.write_text(src.replace(old, new))
-    fs = tcontracts.run_contracts(str(root))
+    manifest = None
+    if seed in PORT_SEED_MANIFESTS:
+        manifest = PORT_SEED_MANIFESTS[seed](tmanifest.default_manifest())
+    fs = tcontracts.run_contracts(str(root), manifest=manifest)
     assert sorted({f.rule for f in fs}) == rules, [
         (f.path, f.line, f.message[:160]) for f in fs
     ]

@@ -18,7 +18,10 @@ scorer, and
 The batched scoring kernel (one launch over K instances) equals K solo
 launches and its plain version; the instance-batched session equals solo
 sessions; a daemon's fused round on the card answers each member's
-in-process plan.
+in-process plan. A lane's residency pool stages on its own copy stream:
+the copies overlap a kernel on the lane stream and carry the host's
+bits, the caching allocator keeps a pooled block from reuse while the
+lane stream reads it, and no kernel runs on the copy stream.
 """
 
 import numpy as np
@@ -880,3 +883,146 @@ def test_served_fused_round_on_the_card(cuda_device, tmp_path):
     assert doc["microbatched"] == 2 and doc["mb_occupancy"] == {"2": 1}
     assert sk.shard_score.launches == 0
     assert 0 < sk.shard_score_batched.launches <= max(w[-1] for w in want)
+
+
+# --- the residency pool's copy stream (serve/residency.py, ops/tensorize) ----
+
+# cycles of torch.cuda._sleep per ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES_PER_MS = 1_980_000
+
+
+def _tensorize_mod():
+    import importlib
+
+    # ops/__init__ re-exports the tensorize FUNCTION under the module name
+    return importlib.import_module("kafkabalancer_tpu_torch.ops.tensorize")
+
+
+def _host_arrays(seed=11):
+    rng = np.random.default_rng(seed)
+    return [
+        rng.integers(-1, 100, (16384, 4)).astype(np.int32),
+        rng.random(16384),  # float64: staged raw, cast at use
+        rng.random((16384, 128)) < 0.3,
+    ]
+
+
+def _trace_events(prof, tmp_path):
+    import json as _json
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        return [ev for ev in _json.load(fh)["traceEvents"]
+                if ev.get("ph") == "X"]
+
+
+def test_staged_copy_overlaps_a_long_kernel_and_has_the_right_bits(
+        cuda_device):
+    """Staged on the lane's copy stream while a spin kernel holds the
+    lane stream: the copies complete before the spin does, and the
+    tensors read on the lane stream right after their event hold the
+    host bits (the float column cast on the lane stream at use)."""
+    from kafkabalancer_tpu_torch.serve.lanes import Lane
+
+    tz = _tensorize_mod()
+    lane = Lane(0, torch.device(cuda_device))
+    hosts = _host_arrays()
+    with lane.context():
+        lane_stream = torch.cuda.current_stream()
+        assert lane_stream == torch.cuda.default_stream(cuda_device)
+        copy = lane.copy_stream()
+        assert copy != lane_stream
+        torch.cuda._sleep(SPIN_CYCLES_PER_MS * 400)
+        rec = {}
+        n = tz.stage_host_arrays(lane.stage_cache, hosts, cuda_device, copy,
+                                 rec)
+        assert n == 3 and rec["bytes"] == sum(a.nbytes for a in hosts)
+        rec["end"].synchronize()
+        # the copies are done while the spin still runs
+        assert not lane_stream.query()
+        got = [tz._pooled(lane.stage_cache, a, cuda_device) for a in hosts]
+        as32 = got[1].to(torch.float32)
+        torch.cuda.synchronize()
+    for a, t in zip(hosts, got):
+        assert np.array_equal(t.cpu().numpy(), a)
+    assert np.array_equal(as32.cpu().numpy(), hosts[1].astype(np.float32))
+    st = lane.stage_cache.stats()
+    assert st["hits"] == 3 and st["misses"] == 0
+    # each fence is handed out once
+    assert all(lane.stage_cache.pop_fence(k) is None
+               for k, _t in lane.stage_cache.items())
+
+
+def test_pooled_block_is_not_reused_while_the_lane_stream_reads_it(
+        cuda_device):
+    """A staged tensor first used on the lane stream is marked used
+    there: dropped from the pool while a queued lane-stream kernel still
+    reads it, its block is not handed to the next allocation on the
+    copy stream. The control (a staged tensor never used on the lane
+    stream) shows the allocator would otherwise reuse the block."""
+    from kafkabalancer_tpu_torch.serve.lanes import Lane
+
+    tz = _tensorize_mod()
+    lane = Lane(0, torch.device(cuda_device))
+    a = np.arange(1 << 20, dtype=np.int32)
+    with lane.context():
+        copy = lane.copy_stream()
+        # the control: staged, freed, and the same-size allocation on the
+        # copy stream takes the block back
+        tz.stage_host_arrays(lane.stage_cache, [a], cuda_device, copy)
+        torch.cuda.synchronize()
+        ptr = lane.stage_cache.items()[0][1].data_ptr()
+        lane.stage_cache.clear()
+        with torch.cuda.stream(copy):
+            again = torch.empty(a.shape, dtype=torch.int32,
+                                device=cuda_device)
+        assert again.data_ptr() == ptr
+        del again
+        torch.cuda.synchronize()
+        # the pooled tensor read on the lane stream behind a spin kernel
+        tz.stage_host_arrays(lane.stage_cache, [a + 1], cuda_device, copy)
+        t = tz._pooled(lane.stage_cache, a + 1, cuda_device)
+        ptr = t.data_ptr()
+        torch.cuda._sleep(SPIN_CYCLES_PER_MS * 300)
+        total = t.sum()
+        lane.stage_cache.clear()
+        del t
+        with torch.cuda.stream(copy):
+            other = torch.empty(a.shape, dtype=torch.int32,
+                                device=cuda_device)
+        assert other.data_ptr() != ptr
+        torch.cuda.synchronize()
+    assert int(total) == int((a.astype(np.int64) + 1).sum())
+
+
+def test_no_kernel_is_launched_on_the_copy_stream(cuda_device, tmp_path):
+    """The profiler's trace of a stage and its first use: the copy
+    stream carries host-to-device copies and nothing else; the casts
+    run as kernels on the lane stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafkabalancer_tpu_torch.serve.lanes import Lane
+
+    tz = _tensorize_mod()
+    lane = Lane(0, torch.device(cuda_device))
+    hosts = _host_arrays(12)
+    with lane.context():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tz.stage_host_arrays(lane.stage_cache, hosts, cuda_device,
+                                 lane.copy_stream())
+            got = [tz._pooled(lane.stage_cache, a, cuda_device)
+                   for a in hosts]
+            got[1].to(torch.float32).sum()
+            torch.cuda.synchronize()
+    events = _trace_events(prof, tmp_path)
+    copies = [ev for ev in events if ev.get("cat") == "gpu_memcpy"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    assert copies, "the profiler recorded no device copy"
+    copy_streams = {ev["args"].get("stream") for ev in copies}
+    kernel_streams = {ev["args"].get("stream") for ev in kernels}
+    assert kernels, "the casts and the sum are kernels on the lane stream"
+    assert len(copy_streams) == 1 and not copy_streams & kernel_streams, (
+        copy_streams, kernel_streams)
+    assert len(copies) == len(hosts)

@@ -234,3 +234,25 @@ class PkgDaemon:
         self.d.spill = None
         self.d.sessions.spill = None
         self.stop()
+
+
+@pytest.fixture
+def one_jax_device(monkeypatch):
+    """The JAX daemon on one CPU device (the suite's conftest makes eight
+    virtual ones): one lane, as the port's daemon has on one CPU device."""
+    import jax
+
+    devs = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: list(devs))
+    yield
+    from kafkabalancer_tpu import obs as jobs
+    from kafkabalancer_tpu_torch import obs as tobs
+
+    jobs.set_shared_registry(False)
+    tobs.set_shared_registry(False)
+    # leaving shared mode zeroes the tracing-request count but leaves the
+    # tracer as it was: a -metrics-json client that ran in this process
+    # while the daemon shared its registry can leave it enabled, and a
+    # later test of the same worker would record spans it never asked for
+    jobs.TRACER.disable()
+    tobs.TRACER.disable()
