@@ -264,10 +264,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``serve.residency_bytes``. e. a ``-fused-engine=pallas`` request
    through the same lane: 13c's plan. d. every pooled tensor's md5
    still its key's.
+21. The kinds the daemon fuses besides the plain move session: a. K1's
+   colocation variant batched (``shard_score_batched`` with counts
+   rows) at K = 1, 2, 4 on the first-pass arguments of four config-4b
+   clusters (seeds ``COLO_SEED`` .. +3): each instance equal to a solo
+   launch and to the plain version bit for bit, allow_leader off and
+   on; its device time (L2 flushed) against K solo launches and the
+   bound. b. ``scan.session_batched`` in colocation mode over those four
+   clusters and at batch 1 over 13e's four (at most ``B1_CAP`` moves
+   each), and ``polish.converge_session_batched`` with the headline
+   flags over 13e's four: every packed log byte-equal to its solo
+   session's, each polish member's phase counts its solo run's; the
+   batched K1 launches against the solo sum; the syncs per iteration
+   under the sync monitor (one per iteration for the move sessions; no
+   sync from an unsuppressed device-loop line). c. a daemon with
+   ``-serve-microbatch=4 -serve-admission-hold=4`` in ``continuous``
+   and in ``oneshot`` mode: four headline clients at once, then four
+   colocation clients: every plan equal to its ``-no-daemon`` plan,
+   ``microbatched`` and ``mb_occupancy`` per kind those of rounds of the
+   members' chunks (one round of 4 for one chunk each), no padded
+   slot; the client walls beside the four in-process runs'.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 14 reads the daemon's tally of its internal runs). Phases
-6-20 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
+6-21 run after 3b and before 4. The last two stdout lines are the kernels JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device (or outside the
 repository) the script exits non-zero before printing either.
 """
@@ -3696,13 +3716,18 @@ def first_pass_args(ins):
                     t_i.int().contiguous(), live.contiguous()), False, False)
 
 
-def check_k1_batched(per):
-    """19a: the batched scoring pass at K = 1, 2, 4 against K solo
-    launches and its plain version, bit for bit, then timed."""
+def check_k1_batched(per, colo=False):
+    """19a (21a with ``colo``: the colocation variant, counts rows
+    included): the batched scoring pass at K = 1, 2, 4 against K solo
+    launches and its plain version, bit for bit, then timed (with
+    allow_leader on the colocation session's own inputs, off on the
+    main path's)."""
     import torch
 
     from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
 
+    tag, what = ("21a", "colocation variant") if colo else ("19a", "K1")
+    lead_t = colo
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     out = {}
@@ -3726,35 +3751,37 @@ def check_k1_batched(per):
                 ):
                     if not (torch.equal(a[k], b[k]) and torch.equal(a[k], d)
                             and bool((a[k] == c[k]).all())):
-                        fail(f"19a: shard_score_batched K={K} instance {k} "
-                             f"allow_leader={lead}: output {name} differs "
-                             f"from a solo launch or the plain version")
-        log(f"19a: shard_score_batched K={K}: each instance equal to a solo "
-            f"shard_score launch and to the plain version (8 outputs, "
-            f"allow_leader off and on, max_abs_err 0.0)")
+                        fail(f"{tag}: shard_score_batched ({what}) K={K} "
+                             f"instance {k} allow_leader={lead}: output "
+                             f"{name} differs from a solo launch or the "
+                             f"plain version")
+        log(f"{tag}: shard_score_batched ({what}) K={K}: each instance equal "
+            f"to a solo shard_score launch and to the plain version (8 "
+            f"outputs, allow_leader off and on, max_abs_err 0.0)")
         ms, host_ms = cuda_ms(
-            lambda: sk.shard_score_batched(*st[:11], allow_leader=False), 20,
-            flush)
+            lambda: sk.shard_score_batched(*st[:11], c_rows=st[11],
+                                           allow_leader=lead_t), 20, flush)
         solo_ms, solo_host = cuda_ms(
-            lambda: [sk.shard_score(*per[k][:11], allow_leader=False)
-                     for k in range(K)], 20, flush)
+            lambda: [sk.shard_score(*per[k][:11], c_rows=per[k][11],
+                                    allow_leader=lead_t) for k in range(K)],
+            20, flush)
         plain_ms, _ph = cuda_ms(
-            lambda: sk.shard_score_batched_plain(*st[:11],
-                                                 allow_leader=False), 3,
-            flush)
-        n_bytes = sum(k1_bytes(per[k], False) for k in range(K))
-        n_ops = sum(k1_ops(per[k], False) for k in range(K))
+            lambda: sk.shard_score_batched_plain(
+                *st[:11], c_rows=st[11], allow_leader=lead_t), 3, flush)
+        n_bytes = sum(k1_bytes(per[k], lead_t) for k in range(K))
+        n_ops = sum(k1_ops(per[k], lead_t) for k in range(K))
         t_b, t_o = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S
         bound = 1e3 * max(t_b, t_o)
         by = "bytes" if t_b >= t_o else "operations"
         out[K] = dict(ms=ms, host_ms=host_ms, solo_ms=solo_ms,
                       solo_host_ms=solo_host, plain_ms=plain_ms,
                       bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops)
-        log(f"19a [{CARD}]: K={K} at 10k x 100 (P={per[0][2].shape[0]} "
-            f"B={per[0][2].shape[1]}): one batched launch {ms} ms on the "
-            f"device ({host_ms} ms host), {K} solo launches {solo_ms} ms "
-            f"({solo_host} ms host), plain {plain_ms} ms, bound {bound} ms "
-            f"({by}; {n_bytes} bytes, {n_ops} ops)")
+        log(f"{tag} [{CARD}]: {what} K={K} at 10k x 100 (P="
+            f"{per[0][2].shape[0]} B={per[0][2].shape[1]}, allow_leader="
+            f"{lead_t}): one batched launch {ms} ms on the device ({host_ms} "
+            f"ms host), {K} solo launches {solo_ms} ms ({solo_host} ms host), "
+            f"plain {plain_ms} ms, bound {bound} ms ({by}; {n_bytes} bytes, "
+            f"{n_ops} ops)")
     del flush_buf
     return out
 
@@ -4161,6 +4188,391 @@ def phase_residency(path, pallas_plan, batch):
                 overlap_ms=overlap_ms, walls=walls)
 
 
+# phase 21: the kinds the daemon fuses besides the plain move session —
+# the colocation objective (K1's colocation variant over the instance
+# axis), -fused-batch=1 and the polish alternation — on four config-4b
+# clusters (seeds COLO_SEED + k) and 13e's four clusters
+# 21b's batch-1 sessions run at most this many moves each
+B1_CAP = 256
+
+
+def colo_cluster_paths():
+    """Config 4b's cluster at seeds COLO_SEED .. COLO_SEED + 3 (the first
+    is phase 9's), one file each."""
+    from kafkabalancer_tpu_torch.codecs import write_partition_list
+    from kafkabalancer_tpu_torch.utils.synth import synth_cluster
+
+    paths = []
+    for k in range(4):
+        pk = os.path.join("chiprun_out", f"smoke_colo_{k}.json")
+        with open(pk, "w") as fh:
+            write_partition_list(fh, synth_cluster(
+                *MAIN_SHAPE, rf=3, seed=COLO_SEED + k, weighted=True,
+                zipf_topics=True))
+        paths.append(pk)
+    return paths
+
+
+def kind_session_inputs(path, dev, min_unbalance, allow_leader):
+    """One cluster file's settled first-chunk session inputs on the card:
+    the 11 tensors of ``scan.session``, ``(min_replicas, min_unbalance,
+    budget, max_moves)``, the topic ids with their bucket, and the polish
+    entry table."""
+    import torch
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+    from kafkabalancer_tpu_torch.models import default_rebalance_config
+    from kafkabalancer_tpu_torch.models.config import default_dtype
+    from kafkabalancer_tpu_torch.ops.cost import broker_loads
+    from kafkabalancer_tpu_torch.ops.runtime import next_bucket
+    from kafkabalancer_tpu_torch.ops.tensorize import (
+        all_allowed_of,
+        tensorize,
+        to_device,
+    )
+    from kafkabalancer_tpu_torch.solvers import polish, scan
+
+    with open(path) as fh:
+        pl = get_partition_list_from_reader(fh, True)
+    cfg = default_rebalance_config()
+    cfg.min_unbalance = min_unbalance
+    cfg.allow_leader_rebalancing = allow_leader
+    _rep, budget = scan._settle_head(pl, cfg, MAIN_REASSIGN)
+    dp = tensorize(pl, cfg)
+    dt = default_dtype(dev)
+    d = to_device(dp, dev, dt, all_allowed=all_allowed_of(dp))
+    loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons,
+                         dp.bvalid.shape[0])
+    always = torch.from_numpy(scan._cfg_broker_mask(dp, cfg)).to(dev)
+    chunk = min(budget, scan.auto_chunk_moves(len(pl.partitions)))
+    ew, ep, er, ev = polish.entry_table(dp, cfg.min_replicas_for_rebalancing)
+    return dict(
+        t=(loads, d.replicas, d.member, d.allowed, d.weights, d.nrep_cur,
+           d.nrep_tgt, d.ncons, d.pvalid, always, d.bvalid),
+        knobs=(cfg.min_replicas_for_rebalancing, cfg.min_unbalance, chunk,
+               next_bucket(chunk, 128)),
+        tid=torch.from_numpy(dp.topic_id).to(dev, torch.long),
+        n_topics=next_bucket(max(1, len(dp.topics)), 64),
+        table=(torch.from_numpy(ew).to(dev, dt),
+               torch.from_numpy(ep).to(dev, torch.long),
+               torch.from_numpy(er).to(dev, torch.long),
+               torch.from_numpy(ev).to(dev)),
+    )
+
+
+def stack_of(xs):
+    import torch
+
+    return [None if xs[0][j] is None else torch.stack([x[j] for x in xs])
+            for j in range(len(xs[0]))]
+
+
+def sync_report(mon, what, iterations):
+    """The syncs of a monitored run from device-loop lines; a sync from an
+    unsuppressed device-loop line fails the run."""
+    loops = LoopLines()
+    in_loop = {st: n for st, n in mon.sites.items() if loops.in_loop(*st)}
+    stray = sorted(st for st in in_loop if not loops.suppressed(*st))
+    loop_syncs = sum(in_loop.values())
+    if stray:
+        fail(f"21b {what}: syncs from unsuppressed device-loop lines {stray} "
+             f"({mon.sites})")
+    return loop_syncs, loop_syncs / max(iterations, 1)
+
+
+def check_kind_session(name, ins, batch, colo, cap=None):
+    """21b: ``session_batched`` at ``batch`` (colocation mode with
+    ``colo``) over the four instances against four solo sessions, byte
+    for byte, the batched run under the sync monitor."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import scan
+
+    K = len(ins)
+    budgets = [x["knobs"][2] if cap is None else min(cap, x["knobs"][2])
+               for x in ins]
+    mm = max(x["knobs"][3] for x in ins)
+    lams = [COLO_LAM] * K
+    nts = {x["n_topics"] for x in ins}
+    if colo and len(nts) != 1:
+        fail(f"21b {name}: the clusters fall in different topic buckets {nts}")
+    nt = nts.pop()
+    solo, solo_launches, solo_wall = [], [], 0.0
+    for k in range(K):
+        ck = dict(topic_id=ins[k]["tid"], lam=lams[k], n_topics=nt) \
+            if colo else {}
+        sk.shard_score.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _r, _l, n, mp, msl, _ms, mt, _su = scan.session(
+            *ins[k]["t"], ins[k]["knobs"][0], ins[k]["knobs"][1], budgets[k],
+            max_moves=mm, allow_leader=True, batch=batch, **ck)
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo.append(torch.cat([mp, msl, mt, torch.tensor(
+            [n], dtype=torch.int32, device=mp.device)]).cpu())
+        solo_launches.append(sk.shard_score.launches)
+    kw = dict(topic_id=torch.stack([x["tid"] for x in ins]), lam=lams,
+              n_topics=nt) if colo else {}
+    st = stack_of([x["t"] for x in ins])
+    mon = SyncMonitor()
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    t0 = time.perf_counter()
+    packed, iters, _secs = mon.run(lambda: scan.session_batched(
+        *st, [x["knobs"][0] for x in ins], [x["knobs"][1] for x in ins],
+        budgets, max_moves=mm, allow_leader=True, batch=batch, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.shard_score_batched.launches
+    if sk.shard_score.launches:
+        fail(f"21b {name}: the batched session launched shard_score "
+             f"{sk.shard_score.launches} times")
+    for k in range(K):
+        if not torch.equal(packed[k].cpu(), solo[k]):
+            fail(f"21b {name}: session_batched instance {k}: the move log "
+                 f"differs from its solo session's")
+    want = max(iters) if batch > 1 else 0
+    if launches != want or (batch == 1 and any(solo_launches)):
+        fail(f"21b {name}: {launches} batched launches for {max(iters)} "
+             f"iterations (solo {solo_launches})")
+    loop_syncs, per_it = sync_report(mon, name, max(iters))
+    if loop_syncs != max(iters):
+        fail(f"21b {name}: {loop_syncs} syncs from device-loop lines for "
+             f"{max(iters)} iterations; {mon.sites}")
+    moves = [int(p[-1]) for p in solo]
+    log(f"21b [{CARD}]: {name}: session_batched over 4 instances at batch "
+        f"{batch}{' (move cap %d)' % cap if cap else ''}: every move log "
+        f"equal to its solo session's ({moves} moves); iterations {iters}, "
+        f"{launches} shard_score_batched launches against "
+        f"{sum(solo_launches)} solo ({solo_launches}); {loop_syncs} syncs "
+        f"from device-loop lines ({per_it} per iteration), {mon.total()} in "
+        f"all; wall {wall} s against {solo_wall} s for the four solo "
+        f"sessions")
+    return dict(iterations=iters, launches=launches, solo=solo_launches,
+                wall=wall, solo_wall=solo_wall, syncs_per_iteration=per_it,
+                moves=moves)
+
+
+def check_headline_batched(ins):
+    """21b: ``converge_session_batched`` with the headline flags over
+    13e's four clusters against four solo ``converge_session`` calls,
+    byte for byte, the batched run under the sync monitor."""
+    import torch
+
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.solvers import polish
+
+    K = len(ins)
+    shapes = {tuple(x["table"][0].shape) for x in ins}
+    if len(shapes) != 1:
+        fail(f"21b headline: the entry tables differ in size {shapes}")
+    mm = max(x["knobs"][3] for x in ins)
+    solo, solo_launches, solo_wall, phases = [], [], 0.0, []
+    for k in range(K):
+        t = ins[k]["t"]
+        sk.shard_score.launches = 0
+        before = counters("polish.")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo.append(polish.converge_session(
+            t[0], t[1], t[3], *t[4:11], *ins[k]["knobs"][:3],
+            *ins[k]["table"], max_moves=mm, allow_leader=True,
+            batch=100).cpu())
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo_launches.append(sk.shard_score.launches)
+        phases.append({n: v - before.get(n, 0.0)
+                       for n, v in counters("polish.").items()
+                       if not n.endswith("_seconds")})
+    st = stack_of([x["t"] for x in ins])
+    table = stack_of([x["table"] for x in ins])
+    mon = SyncMonitor()
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    t0 = time.perf_counter()
+    packed, cnt = mon.run(lambda: polish.converge_session_batched(
+        st[0], st[1], st[3], *st[4:11], *(
+            [x["knobs"][j] for x in ins] for j in range(3)),
+        *table, max_moves=mm, allow_leader=True, batch=100))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.shard_score_batched.launches
+    if sk.shard_score.launches:
+        fail(f"21b headline: the batched alternation launched shard_score "
+             f"{sk.shard_score.launches} times")
+    for k in range(K):
+        if not torch.equal(packed[k].cpu(), solo[k]):
+            fail(f"21b headline: converge_session_batched instance {k}: the "
+                 f"move log differs from its solo alternation's")
+        mine = {n: v for n, v in cnt[k].items()
+                if n.startswith("polish.") and not n.endswith("_seconds")}
+        if mine != phases[k]:
+            fail(f"21b headline: instance {k}'s phase counts {mine}, its "
+                 f"solo alternation's {phases[k]}")
+    if not max(solo_launches) <= launches <= sum(solo_launches):
+        fail(f"21b headline: {launches} batched launches against the solo "
+             f"alternations' {solo_launches}")
+    passes = max(c["solver.session_iterations"] + c["polish.swap_iterations"]
+                 + c["polish.shuffle_iterations"] for c in cnt)
+    loop_syncs, per_it = sync_report(mon, "headline", passes)
+    moves = [int(p[-1]) for p in solo]
+    log(f"21b [{CARD}]: headline (-fused-batch=100 -allow-leader "
+        f"-fused-polish): converge_session_batched over 4 instances: every "
+        f"packed log equal to its solo alternation's ({moves} moves), each "
+        f"instance's phase counts its own ({phases}); {launches} "
+        f"shard_score_batched launches against {sum(solo_launches)} solo "
+        f"({solo_launches}); {loop_syncs} syncs from device-loop lines over "
+        f"at most {passes} passes ({per_it} per pass), {mon.total()} in all; "
+        f"wall {wall} s against {solo_wall} s for the four solo "
+        f"alternations")
+    return dict(launches=launches, solo=solo_launches, wall=wall,
+                solo_wall=solo_wall, syncs_per_pass=per_it, moves=moves)
+
+
+def in_process_plans(paths, flags):
+    """Each cluster's ``-no-daemon`` plan in this process: ``(plans,
+    K1 launches, chunks, walls)``."""
+    from kafkabalancer_tpu_torch import obs
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+
+    if obs.shared_registry():
+        fail("21c: the registry is still shared (a daemon left it so)")
+    plans, k1, chunks, walls = [], [], [], []
+    for pk in paths:
+        sk.shard_score.launches = 0
+        # cli.run resets the registry: its counters are this run's
+        rc, out, err, wall = run_cli(["-input-json", "-input", pk] + flags
+                                     + ["-no-daemon"])
+        if rc != 0:
+            fail(f"21c: in-process {pk} returned {rc}: {err[-2000:]}")
+        plans.append(out)
+        k1.append(sk.shard_score.launches)
+        chunks.append(int(counters("solver.chunks").get("solver.chunks", 0)))
+        walls.append(wall)
+    return plans, k1, chunks, walls
+
+
+def expected_rounds(chunks):
+    """The fused rounds four members with these chunk counts make: each
+    round holds the members with a chunk left; a round of one runs solo.
+    Returns ``(microbatched, occupancy histogram)``."""
+    hist = {}
+    for r in range(max(chunks)):
+        occ = sum(1 for c in chunks if c > r)
+        if occ > 1:
+            hist[str(occ)] = hist.get(str(occ), 0) + 1
+    return sum(int(k) * v for k, v in hist.items()), hist
+
+
+def served_kinds(mode, sock_dir, kinds):
+    """21c: a hold-4 daemon in ``mode``; four clients of each kind at
+    once, one kind after the other."""
+    from kafkabalancer_tpu_torch.parallel import shard_kernel as sk
+    from kafkabalancer_tpu_torch.serve import client
+
+    sock = os.path.join(sock_dir, f"k21-{mode}.sock")
+    d, t, rc_box, logs = serving_daemon(sock, microbatch=4, admission_hold=4,
+                                        batch_mode=mode)
+    if not d._warm_done.wait(240):
+        fail(f"21c {mode}: the daemon never finished its warm body")
+    d._coalescer._hold_window_s = 120.0
+    out, sent = {}, 0
+    st0 = client.fetch_stats(sock) or {}
+    for name, kind in kinds.items():
+        sk.shard_score.launches = 0
+        sk.shard_score_batched.launches = 0
+        t0 = time.perf_counter()
+        procs = [start_client(["-input-json", "-input", pk] + kind["flags"]
+                              + [f"-serve-socket={sock}"])
+                 for pk in kind["paths"]]
+        results = finish_clients(procs, t0, f"21c {mode} {name} client")
+        all_wall = time.perf_counter() - t0
+        sent += len(procs)
+        solo_n, fused_n = sk.shard_score.launches, sk.shard_score_batched.launches
+        st = client.fetch_stats(sock) or {}
+        for k, res in enumerate(results):
+            if res[1] != kind["wants"][k]:
+                fail(f"21c {mode} {name}: client {k}'s plan differs from its "
+                     f"-no-daemon plan")
+        mb = st.get("microbatched", 0) - st0.get("microbatched", 0)
+        occ0 = st0.get("mb_occupancy") or {}
+        occ = {k: v - occ0.get(k, 0)
+               for k, v in (st.get("mb_occupancy") or {}).items()
+               if v - occ0.get(k, 0)}
+        want_mb, want_occ = expected_rounds(kind["chunks"])
+        if (mb, occ) != (want_mb, want_occ) or st.get("mb_padded_slots"):
+            fail(f"21c {mode} {name}: microbatched {mb}, occupancy {occ} "
+                 f"(padded {st.get('mb_padded_slots')}); the members' chunks "
+                 f"{kind['chunks']} make {want_mb}, {want_occ}")
+        walls = [r[3] for r in results]
+        log(f"21c [{CARD}]: {mode}: four concurrent {name} clients "
+            f"({' '.join(kind['flags'])}), each plan equal to its -no-daemon "
+            f"plan; microbatched {mb}, occupancy {occ}, padded 0; "
+            f"shard_score_batched {fused_n} and shard_score {solo_n} launches "
+            f"against {sum(kind['k1'])} in process ({kind['k1']}); client "
+            f"walls {walls} s (all four in {all_wall} s), the four in "
+            f"process one after another {kind['walls']} s ("
+            f"{sum(kind['walls'])} s)")
+        out[name] = dict(launches=fused_n, solo_launches=solo_n, walls=walls,
+                         all_wall=all_wall, microbatched=mb, occupancy=occ)
+        st0 = st
+    stop_daemon(sock, d, t, rc_box, logs, sent, {"session_absent": sent},
+                f"(21c {mode})")
+    return out
+
+
+def phase_fused_kinds(dev, batch):
+    """Phase 21 (see the module docstring): the batched K1 colocation
+    variant, the three batched sessions and the served rounds; returns
+    the readings and each path's launches."""
+    import shutil
+    import tempfile
+
+    from kafkabalancer_tpu_torch.codecs import get_partition_list_from_reader
+
+    t_phase = time.perf_counter()
+    colo_paths = colo_cluster_paths()
+    per = []
+    for pk in colo_paths:
+        with open(pk) as fh:
+            per.append(capture_colo_inputs(
+                get_partition_list_from_reader(fh, True), dev))
+    if len({tuple(a[11].shape) for a in per}) != 1:
+        fail("21a: the four config-4b clusters fall in different buckets")
+    k1 = check_k1_batched(per, colo=True)
+    del per
+    done21 = time.perf_counter()
+    colo_ins = [kind_session_inputs(pk, dev, 1e-6, True) for pk in colo_paths]
+    colo = check_kind_session("colocation (config 4b, batch 128, "
+                              f"lambda {COLO_LAM})", colo_ins, 128, True)
+    del colo_ins
+    head_ins = [kind_session_inputs(pk, dev, 1e-7, True)
+                for pk in batch["paths"]]
+    b1 = check_kind_session("batch 1 (13e's clusters, -allow-leader)",
+                            head_ins, 1, False, cap=B1_CAP)
+    head = check_headline_batched(head_ins)
+    del head_ins
+    log(f"21b: took {time.perf_counter() - done21} s")
+    head_flags = HEADLINE + ["-no-edge-cache"]
+    colo_flags = COLO_FLAGS + ["-no-edge-cache"]
+    kinds = {}
+    for name, paths, flags in (("headline", batch["paths"], head_flags),
+                               ("colocation", colo_paths, colo_flags)):
+        plans, k1n, chunks, walls = in_process_plans(paths, flags)
+        kinds[name] = dict(paths=paths, flags=flags, wants=plans, k1=k1n,
+                           chunks=chunks, walls=walls)
+    sock_dir = tempfile.mkdtemp(prefix="kbt-")
+    try:
+        served = {mode: served_kinds(mode, sock_dir, kinds)
+                  for mode in ("continuous", "oneshot")}
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    log(f"21: phase 21 took {time.perf_counter() - t_phase} s")
+    return dict(k1=k1, colo=colo, b1=b1, head=head, served=served)
+
+
 def main() -> int:
     import torch
 
@@ -4289,6 +4701,11 @@ def main() -> int:
     resid = phase_residency(cluster_path, pallas_plan, batch13)
     done(20)
 
+    # phase 21: the colocation, batch-1 and polish kinds fused, on config
+    # 4b's clusters and 13e's, each path's counts zeroed just before it
+    kinds21 = phase_fused_kinds(dev, batch13)
+    done(21)
+
     # phase 4: scale
     phase_scale(dev)
     phase_scale_pallas(dev)
@@ -4391,6 +4808,37 @@ def main() -> int:
                 fusion["served"]["continuous"]["launches"],
             "19c: the same, -serve-batch-mode=oneshot":
                 fusion["served"]["oneshot"]["launches"],
+            "21b: session_batched, colocation (config 4b), over four "
+            "10k x 100 instances": kinds21["colo"]["launches"],
+            "21b: session_batched at batch 1 over four 10k x 100 "
+            "instances (no kernel)": kinds21["b1"]["launches"],
+            "21b: converge_session_batched, headline flags, over four "
+            "10k x 100 instances": kinds21["head"]["launches"],
+            "21c: four served headline clients, continuous":
+                kinds21["served"]["continuous"]["headline"]["launches"],
+            "21c: four served headline clients, oneshot":
+                kinds21["served"]["oneshot"]["headline"]["launches"],
+            "21c: four served colocation clients, continuous":
+                kinds21["served"]["continuous"]["colocation"]["launches"],
+            "21c: four served colocation clients, oneshot":
+                kinds21["served"]["oneshot"]["colocation"]["launches"],
+        },
+        "solo_launches_21b": {
+            "colocation": kinds21["colo"]["solo"],
+            "headline": kinds21["head"]["solo"],
+        },
+        "syncs_per_iteration_21b": {
+            "colocation": kinds21["colo"]["syncs_per_iteration"],
+            "batch 1": kinds21["b1"]["syncs_per_iteration"],
+            "headline (per move iteration, swap or shuffle pass)":
+                kinds21["head"]["syncs_per_pass"],
+        },
+        "colocation_batched_shapes": {
+            f"K={K} x 10k x 100 (config 4b)": {
+                k: v for k, v in kinds21["k1"][K].items()
+                if k in ("ms", "solo_ms", "plain_ms", "bound_ms",
+                         "bound_by")
+            } for K in BATCH_KS
         },
         "syncs_per_iteration_19b": fusion["session"]["loop_syncs"] / max(
             max(fusion["session"]["iterations"]), 1),

@@ -1274,12 +1274,14 @@ class Daemon:
 
     @staticmethod
     def _admissible_request(req: PlanRequest) -> bool:
-        """ADMISSION prediction: will this request's planning reach the
-        fusible dispatch (``scan.session_batched``: the batched move
-        session, torch engine)? Only such requests join a lane's batcher
-        (serve/lanes.py ``LaneScheduler._run_group``). Conservative on
-        purpose: a false negative costs a missed fusion, a false
-        positive stalls the batch's live peers until it completes."""
+        """ADMISSION prediction: will this request's planning reach a
+        fusible dispatch (the torch engine's batched sessions: the move
+        session at any batch, on the colocation objective too, and the
+        polish alternation)? Only such requests join a lane's batcher
+        (serve/lanes.py ``LaneScheduler._run_group``); the verdict is
+        the reference's on every argv. Conservative on purpose: a false
+        negative costs a missed fusion, a false positive stalls the
+        batch's live peers until it completes."""
         if req.internal is not None:
             # idle speculative/watch work must never couple its
             # lifetime to a live request's fused batch
@@ -1287,16 +1289,6 @@ class Daemon:
         if _argv_value(req.argv, "fused") != "true":
             return False
         if _argv_value(req.argv, "rebalance-leader") == "true":
-            return False
-        # the move session at batch 1, the polish alternation and the
-        # colocation objective do not run batched: they decline here
-        # instead of stalling their peers (a value that does not parse
-        # raises, which the scheduler reads as not admissible)
-        if _argv_value(req.argv, "fused-polish") == "true":
-            return False
-        if float(_argv_value(req.argv, "anti-colocation") or 0) > 0:
-            return False
-        if int(_argv_value(req.argv, "fused-batch") or 2) <= 1:
             return False
         engine = _argv_value(req.argv, "fused-engine") or "auto"
         return (

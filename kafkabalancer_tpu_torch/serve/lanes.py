@@ -35,18 +35,21 @@ batching.
   oneshot``, and the continuous batcher's base.
 
 Cross-request batching: a lane's concurrent same-bucket requests that
-the daemon predicts will reach the batched move session (its
-admission predicate) each run on a member thread of one batcher. At
-every chunk round ``solvers.scan._run_chunk`` offers the member's chunk
-to the batcher; a round fires when every live member has offered or
-left, and the offers of one signature run as ONE instance-batched
-session (``scan.session_batched``: one host loop, one launch of the
-batched scoring kernel per iteration for all K members, one read of
-the K accepted counts). Each member gets its own packed move log, bit
-for bit its solo session's. The instances are stacked at their exact
-count K: nothing is padded (``padded_slots`` stays 0). A member that
-times out at the barrier, a singleton signature and a declined offer
-(another engine or mode, the colocation objective, batch 1) run solo;
+the daemon predicts will reach a batched session (its admission
+predicate, the reference's verdict) each run on a member thread of one
+batcher. At every chunk round ``solvers.scan._run_chunk`` offers the
+member's chunk to the batcher; a round fires when every live member has
+offered or left, and the offers of one signature run as ONE
+instance-batched session: the move session (``scan.session_batched``,
+at any batch and on the colocation objective: one host loop, one launch
+of the batched scoring kernel per iteration for all K members at batch
+> 1, one read of the K accepted counts) or the polish alternation
+(``polish.converge_session_batched``). Each member gets its own packed
+move log, bit for bit its solo session's, and its own counters. The
+instances are stacked at their exact count K: nothing is padded
+(``padded_slots`` stays 0). A member that times out at the barrier, a
+singleton signature and a declined offer (another engine, the leader
+session, a custom scorer — what the reference declines) run solo;
 a failure of the batched session itself fails every member's request,
 as a solo kernel failure does. ``-serve-admission-hold=N`` holds a
 lane's pop until N batchable requests are queued (or a window passes).
@@ -253,15 +256,13 @@ def _mb_sig(args: Tuple, statics: Dict[str, Any]) -> Tuple[Any, ...]:
 
 
 def _fusible(statics: Dict[str, Any]) -> bool:
-    """Does an offer with these statics run in the batched session? Its
-    batched move session at batch > 1 with the torch engine, on the
-    plain objective and the default scorer; everything else declines to
-    solo."""
+    """Does an offer with these statics run in a batched session? What
+    the reference fuses: the torch engine's move sessions (any batch,
+    the colocation objective) and its polish alternation; another
+    engine, the leader session and a custom scorer decline to solo."""
     return (
-        statics.get("mode") == "move"
-        and statics.get("engine") == "xla"
-        and not statics.get("n_topics")
-        and int(statics.get("batch", 1)) > 1
+        statics.get("engine") == "xla"
+        and statics.get("mode") in ("move", "polish")
         and not statics.get("scorer")
     )
 
@@ -276,9 +277,10 @@ class MicrobatchGroup:
     ``solvers.scan._run_chunk`` then offers every chunk here. A round
     completes when every LIVE member has either offered a chunk or
     finished its request; offers sharing a signature run as ONE
-    ``scan.session_batched`` call, each member receiving its own packed
-    move log (bit-identical to its solo session's). Declines (another
-    engine or mode, the colocation objective, batch 1), singleton
+    ``scan.session_batched`` or ``polish.converge_session_batched``
+    call, each member receiving its own packed move log (bit-identical
+    to its solo session's). Declines (another engine, the leader
+    session, a custom scorer), singleton
     signatures and a timed-out wait return None and the caller runs its
     ordinary solo session. An exception of the batched session is raised
     in every member's offer: their requests fail as a solo kernel
@@ -344,7 +346,7 @@ class MicrobatchGroup:
 
     def dispatch(self, args: Tuple, statics: Dict[str, Any]) -> Optional[Any]:
         """Offer one chunk for fusion; this member's ``(packed move log,
-        iterations, seconds)``, or None to run solo (declined / timed
+        counters)``, or None to run solo (declined / timed
         out / singleton round). Raises when the batched session failed."""
         if not _fusible(statics):
             return None
@@ -397,18 +399,41 @@ class MicrobatchGroup:
             from kafkabalancer_tpu_torch.solvers import scan
 
             st = entries[0].statics
-            n_t = len(entries[0].args) - 3
+            n_t = scan.OFFER_TENSORS
             tensors = [
                 None if entries[0].args[i] is None
                 else torch.stack([e.args[i] for e in entries])
                 for i in range(n_t)
             ]
-            knobs = [[e.args[i] for e in entries] for i in range(n_t, n_t + 3)]
-            with obs.span("serve.microbatch_dispatch", k=n, padded_k=n):
-                packed, iters, secs = scan.session_batched(
-                    *tensors, *knobs, max_moves=st["max_moves"],
-                    allow_leader=st["allow_leader"], batch=st["batch"],
-                )
+            min_rep, min_unb, budget, lam = (
+                [e.args[i] for e in entries] for i in range(n_t, n_t + 4)
+            )
+            loads, rep, mem, alw, *rest = tensors[:11]
+            kw = dict(
+                max_moves=st["max_moves"], allow_leader=st["allow_leader"],
+                batch=st["batch"], topic_id=tensors[15],
+                lam=lam if st["n_topics"] else None, n_topics=st["n_topics"],
+            )
+            with obs.span("serve.microbatch_dispatch", k=n, padded_k=n,
+                          mode=st["mode"]):
+                if st["mode"] == "polish":
+                    from kafkabalancer_tpu_torch.solvers.polish import (
+                        converge_session_batched,
+                    )
+
+                    packed, counts = converge_session_batched(
+                        loads, rep, alw, *rest, min_rep, min_unb, budget,
+                        *tensors[11:15], **kw,
+                    )
+                else:
+                    packed, iters, secs = scan.session_batched(
+                        *tensors[:11], min_rep, min_unb, budget, **kw,
+                    )
+                    counts = [
+                        {"solver.session_seconds": secs[k],
+                         "solver.session_iterations": iters[k]}
+                        for k in range(n)
+                    ]
                 host = packed.cpu().numpy()
         except Exception as exc:
             # no solo retry: the members' requests fail with the error
@@ -421,7 +446,7 @@ class MicrobatchGroup:
         with self._cv:
             for k, e in enumerate(entries):
                 if not e.solo:  # a timed-out member already went solo
-                    e.result = (host[k], iters[k], secs[k])
+                    e.result = (host[k], counts[k])
                     e.done = True
             self.fused_requests += n
             self.fused_dispatches += 1

@@ -34,12 +34,13 @@ sessions with pair-swap phases (``solvers/polish.py``), and
 session (and polish) on the combined objective ``u + λ·colocations``
 with per-(topic, broker) counts as session state.
 
-:func:`session_batched` runs K independent batched move sessions as one
-(the counterpart of the reference's ``session_packed_batched``): one
-host loop, one launch of the batched scoring kernel for all K per
-iteration, one read of the K accepted counts. The planning daemon's
-batchers (serve/lanes.py) reach it through the seam in
-:func:`_run_chunk` (:func:`set_microbatcher`).
+:func:`session_batched` runs K independent move sessions as one (with
+``polish.converge_session_batched``, the counterpart of the reference's
+``session_packed_batched``): one host loop, at batch > 1 one launch of
+the batched scoring kernel for all K per iteration (its colocation
+variant on the combined objective), one read of the K accepted counts.
+The planning daemon's batchers (serve/lanes.py) reach both through the
+seam in :func:`_run_chunk` (:func:`set_microbatcher`).
 """
 
 from __future__ import annotations
@@ -748,16 +749,37 @@ def _rows_of(x: Tensor, idx: Tensor) -> Tensor:
     )
 
 
+def _at(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[k].reshape(-1)[idx[k]]`` for ``x [K, ...]`` and ``idx [K,
+    ...]``: flat positions within each instance."""
+    K = x.shape[0]
+    return x.reshape(K, -1).gather(1, idx.reshape(K, -1)).view(idx.shape)
+
+
+def member_from_k(
+    replicas: Tensor, nrep_cur: Tensor, pvalid: Tensor, B: int
+) -> Tensor:
+    """:func:`member_from` of each of ``K`` instances (``replicas [K, P,
+    R]``): the ``[K, P, B]`` membership masks."""
+    K, P, R = replicas.shape
+    return member_from(
+        replicas.reshape(K * P, R), nrep_cur.reshape(-1), pvalid.reshape(-1),
+        B,
+    ).view(K, P, B)
+
+
 def _batch_pool_k(
     loads: Tensor, bvalid: Tensor, nb: Tensor, rep: Tensor, mem: Tensor,
     allowed: Optional[Tensor], cols: Tensor, minrep: Tensor,
     score: Callable[..., Tuple[Tensor, ...]], *, allow_leader: bool,
+    c_rows: Optional[Tensor] = None, lam: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
     """:func:`batch_pool` of each of ``K`` instances (every input with a
     leading instance axis), with one call of the batched scorer: each
     instance's pool has the bits of a :func:`batch_pool` call on it
     (element-wise expressions term for term, every reduction per instance
-    in the same order)."""
+    in the same order). ``c_rows [K, P, B]`` with ``lam [K]`` switches on
+    the scorer's colocation variant, as in :func:`rows_pool`."""
     K, P, R = rep.shape
     B = loads.shape[1]
     dev = loads.device
@@ -771,10 +793,11 @@ def _batch_pool_k(
     # rows_pool
     weights = cols[..., 0]
     nrep_cur = cols[..., 1]
+    lam_s = torch.zeros_like(minrep) if lam is None else lam
     vf, pf, vl, pl_, vpf, ppf, vpl, ppl = score(
         rep, cols, mem, allowed, loads, F, bvalid,
-        torch.stack([avg, minrep, torch.zeros_like(minrep)], 1),
-        s_i.to(torch.int32), t_i.to(torch.int32), live, c_rows=None,
+        torch.stack([avg, minrep, lam_s], 1),
+        s_i.to(torch.int32), t_i.to(torch.int32), live, c_rows=c_rows,
         allow_leader=allow_leader,
     )
     pf = pf.long()
@@ -786,6 +809,8 @@ def _batch_pool_k(
         )
         - F[:, None, :]
     )  # [K, B, B]
+    if c_rows is not None:
+        rowsA = rowsA - colo_terms(_rows_of(c_rows, pf), lam[:, None, None])[0]
     slot_vals = rowsA.gather(2, _rows_of(rep, pf).clamp(min=0).long())
     valids = (slot_iota >= 1) & (slot_iota < nrep_cur.gather(1, pf)[:, :, None])
     slot_f = torch.where(
@@ -836,10 +861,12 @@ def _prefix_accept_k(
     vals: Tensor, p: Tensor, s_: Tensor, t: Tensor, w_k: Tensor,
     loads: Tensor, avg: Tensor, su: Tensor, mu: Tensor, churn_gate: Tensor,
     n: Tensor, batch: int, budget: Tensor, max_moves: int,
+    topic: Optional[Tensor] = None, colo_d: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`prefix_accept` of each of ``K`` instances (candidates ``[K,
     N]``, ``loads [K, B]``; ``avg``, ``su``, ``mu``, ``n`` and ``budget``
-    ``[K]``): no reduction crosses the instance axis. Returns ``(ok,
+    ``[K]``; ``topic`` and ``colo_d`` ``[K, N]`` on the colocation
+    objective): no reduction crosses the instance axis. Returns ``(ok,
     pos)``."""
     dtype = loads.dtype
     N = vals.shape[1]
@@ -855,6 +882,18 @@ def _prefix_accept_k(
         (vals[:, :, None] == vals[:, None, :]) & (kk[:, None] < kk[None, :])
     )
     claimed = E & improving[:, :, None] & (p[:, :, None] == p[:, None, :])
+    if topic is not None:
+        # (topic, broker) first-claim: keeps each ±λ constant exact
+        bshare = (
+            (s_[:, :, None] == s_[:, None, :])
+            | (s_[:, :, None] == t[:, None, :])
+            | (t[:, :, None] == s_[:, None, :])
+            | (t[:, :, None] == t[:, None, :])
+        )
+        claimed |= (
+            E & improving[:, :, None]
+            & (topic[:, :, None] == topic[:, None, :]) & bshare
+        )
     surv = improving & ~claimed.any(1)
 
     Ej = (E & surv[:, :, None]).to(dtype)
@@ -874,6 +913,8 @@ def _prefix_accept_k(
         + overload_penalty(Lt + w_k, a)
         - overload_penalty(Lt, a)
     )
+    if colo_d is not None:
+        d_k = d_k + colo_d
     ok = surv & (d_k < -mu[:, None]) & (d_k < 0)
     ok &= ~(E & (surv & ~ok)[:, :, None]).any(1)
     pos = n[:, None] + (E & ok[:, :, None]).sum(1)
@@ -883,7 +924,300 @@ def _prefix_accept_k(
     return ok, pos
 
 
+def _single_move_k(
+    loads: Tensor, rep: Tensor, mem: Tensor, allowed: Optional[Tensor],
+    bvalid: Tensor, nb: Tensor, weights: Tensor, nrep_cur: Tensor,
+    nrep_tgt: Tensor, pvalid: Tensor, universe_valid: Tensor,
+    minrep: Tensor, mu: Tensor, *, allow_leader: bool,
+) -> Tuple[Tensor, ...]:
+    """:func:`single_move` of each of ``K`` instances (every input with a
+    leading instance axis; ``nb``, ``minrep`` and ``mu`` ``[K]``): each
+    instance's ``[P, R, B]`` candidate scores term for term, its targets
+    ranked with :func:`~kafkabalancer_tpu_torch.ops.cost.rank_brokers`'
+    stable sort, and its first flat argmin. Returns ``(accept, p, slot,
+    s_dense, t_dense)``, each ``[K]``."""
+    K, P, R = rep.shape
+    B = loads.shape[1]
+    dev = loads.device
+    inf = float("inf")
+    # rank_brokers per instance: (load, index) order, padded brokers last
+    sort_load = torch.where(bvalid, loads, torch.full_like(loads, inf))
+    perm = torch.sort(sort_load, dim=1, stable=True).indices
+    rank_of = torch.empty_like(perm).scatter_(
+        1, perm, torch.arange(B, device=dev)[None, :].expand(K, B)
+    )
+    alw = (universe_valid[:, None, :].expand(K, P, B) if allowed is None
+           else allowed)
+    perm_p = perm[:, None, :].expand(K, P, B)
+    bvalid_rank = bvalid.gather(1, perm)
+    # move_candidate_scores per instance
+    loads_rank = loads.gather(1, perm)
+    zero = torch.zeros_like(loads)
+    avg = ordered_sum(torch.where(bvalid, loads, zero), 1) / nb
+    F = torch.where(bvalid_rank, overload_penalty(loads_rank, avg[:, None]),
+                    zero)
+    su = ordered_sum(F, 1)
+    a3 = avg[:, None, None]
+    w = weights[:, :, None]  # [K, P, 1]
+    s = rep.clamp(min=0).long()  # [K, P, R]
+    F_s = _at(F, _at(rank_of, s))
+    f_s_new = overload_penalty(_at(loads, s) - w, a3)
+    f_t_new = overload_penalty(loads_rank[:, None, :] + w, a3)
+    u = (
+        su[:, None, None, None]
+        - F_s[..., None]
+        - F[:, None, None, :]
+        + f_s_new[..., None]
+        + f_t_new[:, :, None, :]
+    )  # [K, P, R, B]
+    slot_iota = torch.arange(R, device=dev)
+    srcmask = (
+        (slot_iota[None, None, :] < nrep_cur[:, :, None])
+        & pvalid[:, :, None]
+        & (nrep_tgt >= minrep[:, None])[:, :, None]
+    )
+    tmask = (
+        alw.gather(2, perm_p) & ~mem.gather(2, perm_p) & bvalid_rank[:, None, :]
+    )
+    u = torch.where(
+        srcmask[..., None] & tmask[:, :, None, :], u, torch.full_like(u, inf)
+    )
+
+    def best(mask_slots: Tensor) -> Tuple[Tensor, Tensor]:
+        flat = torch.where(
+            mask_slots[None, None, :, None], u, torch.full_like(u, inf)
+        ).reshape(K, -1)
+        i = flat.argmin(1)
+        return flat.gather(1, i[:, None])[:, 0], i
+
+    fol_u, fol_i = best(slot_iota >= 1)
+    accept = (fol_u < su - mu) & (fol_u < su)
+    chosen = fol_i
+    if allow_leader:
+        lead_u, lead_i = best(slot_iota == 0)
+        accept_lead = (lead_u < su - mu) & (lead_u < su)
+        chosen = torch.where(accept_lead, lead_i, fol_i)
+        accept = accept | accept_lead
+    p, rem = chosen // (R * B), chosen % (R * B)
+    slot, t_rank = rem // B, rem % B
+    s_dense = _at(rep, p * R + slot).long()
+    return accept, p, slot, s_dense, perm.gather(1, t_rank[:, None])[:, 0]
+
+
+def _on_device(values: List[Any], dt: Any, dev: torch.device) -> Tensor:
+    """``values`` as a ``[K]`` tensor filled on the device (no copy from
+    the host, no sync); each value rounded to ``dt`` as
+    :func:`~kafkabalancer_tpu_torch.ops.cost.scalar` rounds it."""
+    return torch.stack(
+        [torch.full((), v, dtype=dt, device=dev) for v in values]
+    )
+
+
 # device-loop: the K sessions' shared host loop, one designed read per iteration
+def _moves_batched(
+    loads: Tensor,
+    replicas: Tensor,
+    member: Tensor,
+    allowed: Optional[Tensor],
+    weights: Tensor,
+    nrep_cur: Tensor,
+    nrep_tgt: Tensor,
+    ncons: Tensor,
+    pvalid: Tensor,
+    always_valid: Tensor,
+    universe_valid: Tensor,
+    min_replicas: List[int],
+    min_unbalance: List[float],
+    budget: List[int],
+    *,
+    max_moves: int,
+    allow_leader: bool,
+    batch: int,
+    scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+    topic_id: Optional[Tensor] = None,
+    lam: Optional[List[float]] = None,
+    n_topics: int = 0,
+) -> Tuple[Any, ...]:
+    """:func:`session_batched`'s loop. Returns ``(replicas, loads, log,
+    n, iterations, seconds)``: the final ``[K, P, R]`` assignments and
+    ``[K, B]`` loads, the ``[K, 4, max_moves + 1]`` move logs (rows p |
+    slot | src | tgt, int64, a trash column at ``max_moves``) and the
+    per-instance lists."""
+    if n_topics and batch <= 1:
+        raise ValueError(
+            "the anti-colocation session requires batch > 1 "
+            "(the pooled batched selection)"
+        )
+    K, P, R = replicas.shape
+    B = loads.shape[1]
+    dtype = loads.dtype
+    dev = loads.device
+    score = shard_score_batched if scorer is None else scorer
+    mu = _on_device(list(min_unbalance), dtype, dev)
+    minrep = _on_device(list(min_replicas), dtype, dev)
+    cg = torch.full((), DEFAULT_CHURN_GATE, dtype=dtype, device=dev)
+    budgets = list(budget)
+    budget_t = _on_device(budgets, torch.long, dev)
+    inst = torch.arange(K, device=dev)[:, None]
+
+    # session state, updated in place; one trash element past the end of
+    # the flattened loads, replicas and membership takes every rejected
+    # write
+    loads_buf = torch.cat([loads.reshape(-1), loads.new_zeros(1)])
+    loads = loads_buf[: K * B].view(K, B)
+    rep_buf = torch.cat([replicas.reshape(-1), replicas.new_full((1,), -1)])
+    rep = rep_buf[: K * P * R].view(K, P, R)
+    mem_buf = torch.cat([member.reshape(-1), member.new_zeros(1)])
+    mem = mem_buf[: K * P * B].view(K, P, B)
+    bcount = (mem & pvalid[:, :, None]).sum(1).to(torch.int32)
+    # move logs rows p | slot | src | tgt, trash column at max_moves
+    log = torch.full((K, 4, max_moves + 1), -1, dtype=torch.long, device=dev)
+    log_row = (inst[:, :, None] * 4 + torch.arange(4, device=dev)[None, :, None]
+               ) * (max_moves + 1)
+    cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
+    n_dev = torch.zeros(K, dtype=torch.long, device=dev)
+    if n_topics:
+        # per-instance (topic, broker) replica counts; integer-valued
+        # floats, so every summation order gives the same bits
+        tid = topic_id.long()
+        counts = torch.zeros((K, n_topics, B), dtype=dtype, device=dev)
+        scatter_add_(
+            counts.view(K * n_topics, B), (tid + inst * n_topics).reshape(-1),
+            (member & pvalid[:, :, None]).to(dtype).reshape(K * P, B),
+        )
+        counts_flat = counts.view(-1)
+        lam_t = _on_device(list(lam or [0.0] * K), dtype, dev)
+    # which instances still run; the host keeps the same mask
+    n = [0] * K
+    live = [b > 0 and max_moves > 0 for b in budgets]
+    active = budget_t > 0
+    iters = [0] * K
+    seconds = [0.0] * K
+
+    def commit_rows(ok: Tensor, pos: Tensor, p: Tensor, slot: Tensor,
+                    s_: Tensor, t: Tensor) -> None:
+        # the accepted moves (``ok [K, N]``) into the move logs at ``pos``,
+        # the replicas and the membership; rejected ones write to the
+        # trash column and the trash elements
+        logpos = torch.where(ok, pos, max_moves)
+        entries = torch.stack([p, slot, s_, t], 1)
+        log.view(-1).index_put_(
+            ((log_row + logpos[:, None, :]).reshape(-1),),
+            torch.where(ok[:, None, :], entries, torch.full_like(entries, -1))
+            .reshape(-1),
+        )
+        rep_buf.index_put_(
+            (torch.where(ok, inst * (P * R) + p * R + slot, K * P * R)
+             .reshape(-1),),
+            t.to(rep_buf.dtype).reshape(-1),
+        )
+        mem_buf.index_fill_(
+            0, torch.where(ok, inst * (P * B) + p * B + s_, K * P * B)
+            .reshape(-1), False,
+        )
+        mem_buf.index_fill_(
+            0, torch.where(ok, inst * (P * B) + p * B + t, K * P * B)
+            .reshape(-1), True,
+        )
+
+    def step_batch(bvalid: Tensor, nb: Tensor) -> Tensor:  # device-loop: one batched iteration of the K sessions
+        colo = {}
+        if n_topics:
+            colo = dict(c_rows=_rows_of(counts, tid), lam=lam_t)
+        vals, p, slot, s_, t, w_k, avg, su = _batch_pool_k(
+            loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
+            allow_leader=allow_leader, **colo,
+        )
+        tid_k = colo_d = None
+        if n_topics:
+            # each candidate's colocation delta from the pass-start
+            # counts; the (topic, broker) claims keep it exact
+            tid_k = tid.gather(1, p)
+            cell = (inst * n_topics + tid_k) * B
+            sub_s, _ = colo_terms(counts_flat[cell + s_], lam_t[:, None])
+            _, add_t = colo_terms(counts_flat[cell + t], lam_t[:, None])
+            colo_d = add_t - sub_s
+        ok, pos = _prefix_accept_k(
+            vals, p, s_, t, w_k, loads, avg, su, mu, cg, n_dev, batch,
+            budget_t, max_moves, topic=tid_k, colo_d=colo_d,
+        )
+        ok &= active[:, None]
+        # commit; rejected candidates add zeros
+        delta = w_k * ok.to(dtype)
+        flat_s = (s_ + inst * B).reshape(-1)
+        flat_t = (t + inst * B).reshape(-1)
+        lf = loads.view(-1)
+        scatter_add_(lf, flat_s, -delta.reshape(-1))
+        scatter_add_(lf, flat_t, delta.reshape(-1))
+        oki = ok.to(torch.int32).reshape(-1)
+        bf = bcount.view(-1)
+        scatter_add_(bf, flat_s, -oki)
+        scatter_add_(bf, flat_t, oki)
+        if n_topics:
+            okd = ok.to(dtype).reshape(-1)
+            scatter_add_(counts_flat, (cell + s_).reshape(-1), -okd)
+            scatter_add_(counts_flat, (cell + t).reshape(-1), okd)
+        commit_rows(ok, pos, p, slot, s_, t)
+        return ok.sum(1)
+
+    def step_single(bvalid: Tensor, nb: Tensor) -> Tensor:  # device-loop: one single-move iteration of the K sessions
+        accept, p, slot, s_d, t_d = _single_move_k(
+            loads, rep, mem, allowed, bvalid, nb, weights, nrep_cur,
+            nrep_tgt, pvalid, universe_valid, minrep, mu,
+            allow_leader=allow_leader,
+        )
+        ok = accept & active
+        # commit_single's updates for the accepted instances (the others
+        # write to the trash element); the target's load is read after
+        # the source's write, as commit_single's in-place updates do
+        w_p = weights.gather(1, p[:, None])[:, 0]
+        delta = torch.where(
+            slot == 0,
+            w_p * (nrep_cur.gather(1, p[:, None])[:, 0].to(dtype)
+                   + ncons.gather(1, p[:, None])[:, 0]),
+            w_p,
+        )
+        at_s, at_t = inst[:, 0] * B + s_d, inst[:, 0] * B + t_d
+        loads_buf.index_put_(
+            (torch.where(ok, at_s, K * B),), loads_buf[at_s] - delta
+        )
+        loads_buf.index_put_(
+            (torch.where(ok, at_t, K * B),), loads_buf[at_t] + delta
+        )
+        oki = ok.to(torch.int32)
+        bf = bcount.view(-1)
+        scatter_add_(bf, at_s, -oki)
+        scatter_add_(bf, at_t, oki)
+        commit_rows(ok[:, None], n_dev[:, None], p[:, None], slot[:, None],
+                    s_d[:, None], t_d[:, None])
+        return ok.long()
+
+    step_of = step_batch if batch > 1 else step_single
+
+    def step() -> Tensor:  # device-loop: one iteration of the K sessions
+        bvalid = (always_valid | (bcount > 0)) & universe_valid
+        cnt = step_of(bvalid, bvalid.sum(1).to(dtype))
+        n_dev.add_(cnt)
+        active.logical_and_(
+            (cnt > 0) & (n_dev < budget_t) & (n_dev < max_moves)
+        )
+        return cnt
+
+    t0 = time.perf_counter()
+    while any(live):
+        # jaxlint: disable=R3 — the designed read: the [K] accepted counts end the iteration
+        cnts = step().tolist()
+        now = time.perf_counter() - t0
+        for k in range(K):
+            if not live[k]:
+                continue
+            iters[k] += 1
+            seconds[k] = now
+            n[k] += cnts[k]
+            live[k] = cnts[k] > 0 and n[k] < budgets[k] and n[k] < max_moves
+    return rep, loads, log, n, iters, seconds
+
+
 def session_batched(
     loads: Tensor,
     replicas: Tensor,
@@ -904,21 +1238,33 @@ def session_batched(
     allow_leader: bool,
     batch: int,
     scorer: Optional[Callable[..., Tuple[Tensor, ...]]] = None,
+    topic_id: Optional[Tensor] = None,
+    lam: Optional[List[float]] = None,
+    n_topics: int = 0,
 ) -> Tuple[Tensor, List[int], List[float]]:
-    """``K`` independent batched move sessions (:func:`session` at ``batch
-    > 1``) as one: every tensor of :func:`session` with a leading instance
-    axis ``[K, ...]`` (one device, one dtype), and each instance's
-    ``min_replicas``, ``min_unbalance`` and move ``budget`` in a list.
+    """``K`` independent move sessions (:func:`session`) as one: every
+    tensor of :func:`session` with a leading instance axis ``[K, ...]``
+    (one device, one dtype), and each instance's ``min_replicas``,
+    ``min_unbalance`` and move ``budget`` in a list.
 
-    One host loop runs them together. Each iteration makes one launch of
-    the batched scoring kernel (``shard_score_batched``; ``scorer``
-    replaces it, e.g. with ``shard_score_batched_plain``) and one read of
-    the ``[K]`` accepted counts. An instance that has stopped (a count of
-    0, or its budget reached) commits nothing more: its acceptance mask
-    is cleared on the device while the loop runs on for the others.
-    Every float reduction stays within its instance, in :func:`session`'s
-    order, so each instance's moves are bit for bit those of a
-    :func:`session` call on it alone.
+    One host loop runs them together, with one read of the ``[K]``
+    accepted counts per iteration. At ``batch > 1`` each iteration makes
+    one launch of the batched scoring kernel (``shard_score_batched``;
+    ``scorer`` replaces it, e.g. with ``shard_score_batched_plain``); at
+    ``batch == 1`` each instance takes :func:`single_move`'s best move
+    (:func:`_single_move_k`; no kernel, as in the solo session).
+    ``n_topics > 0`` (with ``topic_id [K, P]`` and one ``lam`` per
+    instance in a list) runs the anti-colocation session: per-instance
+    ``[K, n_topics, B]`` counts, the kernel's colocation variant over the
+    instance axis and each instance's (topic, broker) claims. λ is a
+    value, not part of the signature: instances that differ only in λ
+    run together.
+
+    An instance that has stopped (a count of 0, or its budget reached)
+    commits nothing more: its acceptance mask is cleared on the device
+    while the loop runs on for the others. Every float reduction stays
+    within its instance, in :func:`session`'s order, so each instance's
+    moves are bit for bit those of a :func:`session` call on it alone.
 
     Returns ``(packed, iterations, seconds)``: the packed move logs ``[K,
     3 * max_moves + 1]`` in :func:`_run_chunk`'s layout (``move_p |
@@ -926,114 +1272,14 @@ def session_batched(
     (those of its solo session) and the loop's seconds until it stopped.
     The inputs are not modified.
     """
-    if batch <= 1:
-        raise ValueError("session_batched requires batch > 1")
-    K, P, R = replicas.shape
-    B = loads.shape[1]
-    dtype = loads.dtype
-    dev = loads.device
-    score = shard_score_batched if scorer is None else scorer
-    def on_device(values: List[Any], dt: Any) -> Tensor:
-        # filled on the device (no copy from the host, no sync); each
-        # value rounded to ``dt`` as scalar() rounds it
-        return torch.stack(
-            [torch.full((), v, dtype=dt, device=dev) for v in values]
-        )
-
-    mu = on_device(list(min_unbalance), dtype)
-    minrep = on_device(list(min_replicas), dtype)
-    cg = torch.full((), DEFAULT_CHURN_GATE, dtype=dtype, device=dev)
-    budgets = list(budget)
-    budget_t = on_device(budgets, torch.long)
-    inst = torch.arange(K, device=dev)[:, None]
-
-    # session state, updated in place; one trash element past the end of
-    # the flattened replicas and membership takes every rejected write
-    loads = loads.clone()
-    rep_buf = torch.cat([replicas.reshape(-1), replicas.new_full((1,), -1)])
-    rep = rep_buf[: K * P * R].view(K, P, R)
-    mem_buf = torch.cat([member.reshape(-1), member.new_zeros(1)])
-    mem = mem_buf[: K * P * B].view(K, P, B)
-    bcount = (mem & pvalid[:, :, None]).sum(1).to(torch.int32)
-    # move logs rows p | slot | src | tgt, trash column at max_moves
-    log = torch.full((K, 4, max_moves + 1), -1, dtype=torch.long, device=dev)
-    log_row = (inst[:, :, None] * 4 + torch.arange(4, device=dev)[None, :, None]
-               ) * (max_moves + 1)
-    cols = pack_cols(weights, nrep_cur, nrep_tgt, ncons, pvalid)
-    n_dev = torch.zeros(K, dtype=torch.long, device=dev)
-    # which instances still run; the host keeps the same mask
-    n = [0] * K
-    live = [b > 0 and max_moves > 0 for b in budgets]
-    active = budget_t > 0
-    iters = [0] * K
-    seconds = [0.0] * K
-
-    def step() -> Tensor:  # device-loop: one iteration of the K sessions
-        bvalid = (always_valid | (bcount > 0)) & universe_valid
-        nb = bvalid.sum(1).to(dtype)
-        vals, p, slot, s_, t, w_k, avg, su = _batch_pool_k(
-            loads, bvalid, nb, rep, mem, allowed, cols, minrep, score,
-            allow_leader=allow_leader,
-        )
-        ok, pos = _prefix_accept_k(
-            vals, p, s_, t, w_k, loads, avg, su, mu, cg, n_dev, batch,
-            budget_t, max_moves,
-        )
-        ok &= active[:, None]
-        cnt = ok.sum(1)
-        # commit; rejected candidates add zeros
-        delta = w_k * ok.to(dtype)
-        flat_s = (s_ + inst * B).reshape(-1)
-        flat_t = (t + inst * B).reshape(-1)
-        lf = loads.view(-1)
-        scatter_add_(lf, flat_s, -delta.reshape(-1))
-        scatter_add_(lf, flat_t, delta.reshape(-1))
-        oki = ok.to(torch.int32).reshape(-1)
-        bf = bcount.view(-1)
-        scatter_add_(bf, flat_s, -oki)
-        scatter_add_(bf, flat_t, oki)
-        logpos = torch.where(ok, pos, max_moves)
-        log.view(-1).index_put_(
-            ((log_row + logpos[:, None, :]).reshape(-1),),
-            torch.where(
-                ok[:, None, :], torch.stack([p, slot, s_, t], 1),
-                torch.full_like(log[:, :, :1], -1),
-            ).reshape(-1),
-        )
-        # rejected candidates write to the trash element
-        rep_buf.index_put_(
-            (torch.where(ok, inst * (P * R) + p * R + slot, K * P * R)
-             .reshape(-1),),
-            t.to(rep_buf.dtype).reshape(-1),
-        )
-        mem_buf.index_fill_(
-            0, torch.where(ok, inst * (P * B) + p * B + s_, K * P * B)
-            .reshape(-1), False,
-        )
-        mem_buf.index_fill_(
-            0, torch.where(ok, inst * (P * B) + p * B + t, K * P * B)
-            .reshape(-1), True,
-        )
-        n_dev.add_(cnt)
-        active.logical_and_(
-            (cnt > 0) & (n_dev < budget_t) & (n_dev < max_moves)
-        )
-        return cnt
-
-    t0 = time.perf_counter()
-    while any(live):
-        # jaxlint: disable=R3 — the designed read: the [K] accepted counts end the iteration
-        cnts = step().tolist()
-        now = time.perf_counter() - t0
-        for k in range(K):
-            if not live[k]:
-                continue
-            iters[k] += 1
-            seconds[k] = now
-            n[k] += cnts[k]
-            live[k] = cnts[k] > 0 and n[k] < budgets[k] and n[k] < max_moves
+    _rep, _loads, log, n, iters, seconds = _moves_batched(
+        loads, replicas, member, allowed, weights, nrep_cur, nrep_tgt, ncons,
+        pvalid, always_valid, universe_valid, min_replicas, min_unbalance,
+        budget, max_moves=max_moves, allow_leader=allow_leader, batch=batch,
+        scorer=scorer, topic_id=topic_id, lam=lam, n_topics=n_topics,
+    )
     mp, mslot, _msrc, mtgt = log[:, :, :max_moves].to(torch.int32).unbind(1)
-    n_t = on_device(n, torch.int32)[:, None]
+    n_t = _on_device(n, torch.int32, loads.device)[:, None]
     return torch.cat([mp, mslot, mtgt, n_t], 1), iters, seconds
 
 
@@ -1057,11 +1303,19 @@ def _cfg_broker_mask(dp: Any, cfg: RebalanceConfig) -> "np.ndarray":
 _mb_tls = threading.local()
 
 
+# the offer's layout (:func:`_run_chunk`): the session's tensors —
+# loads, replicas, member, allowed, weights, nrep_cur, nrep_tgt, ncons,
+# pvalid, always_valid, universe_valid, the polish entry table ew, ep,
+# er, evalid and topic_id, None where a mode has none — then the values
+# min_replicas, min_unbalance, budget and lam
+OFFER_TENSORS = 16
+
+
 def set_microbatcher(mb: Optional[Any]) -> None:
     """Install (or, with None, clear) THIS thread's batcher — an object
     with ``dispatch(args, statics)`` returning ``(packed move log,
-    iterations, seconds)`` for this caller's chunk, or None to run it
-    solo."""
+    counters)`` for this caller's chunk (the counters its solo session
+    would count, by name), or None to run it solo."""
     _mb_tls.mb = mb
 
 
@@ -1119,11 +1373,25 @@ def _run_chunk(
             topic_id=torch.from_numpy(dp.topic_id).to(device, torch.long),
             lam=lam, n_topics=next_bucket(max(1, len(dp.topics)), 64),
         )
+    entries: Tuple[Optional[Tensor], ...] = (None,) * 4
+    if mode == "polish":
+        from kafkabalancer_tpu_torch.solvers.polish import entry_table
+
+        ew, ep, er, evalid = entry_table(dp, cfg.min_replicas_for_rebalancing)
+        entries = (
+            torch.from_numpy(ew).to(device, dtype),
+            torch.from_numpy(ep).to(device, torch.long),
+            torch.from_numpy(er).to(device, torch.long),
+            torch.from_numpy(evalid).to(device),
+        )
     obs.metrics.count("solver.chunks")
     mb = microbatcher()
     if mb is not None:
+        # the offer: the session's tensors (OFFER_TENSORS of them, None
+        # where a mode has none), then its per-instance values
         fused = mb.dispatch(
-            (loads, d.replicas, d.member, d.allowed, *common),
+            (loads, d.replicas, d.member, d.allowed, *common[:7], *entries,
+             colo.get("topic_id"), *common[7:], lam),
             dict(
                 P=dp.replicas.shape[0], B=B, R=dp.replicas.shape[1],
                 dtype=str(dtype), all_allowed=all_allowed,
@@ -1135,32 +1403,22 @@ def _run_chunk(
             ),
         )
         if fused is not None:
-            packed, iters, seconds = fused
+            packed, counts = fused
             obs.metrics.count("solver.microbatched_chunks")
-            # this request's own session counters: its iterations in the
-            # fused loop are those of its solo session
-            obs.metrics.count("solver.session_seconds", seconds)
-            obs.metrics.count("solver.session_iterations", iters)
+            # this request's own counters: its iterations and phases in
+            # the fused loop are those of its solo session
+            for name, value in counts.items():
+                obs.metrics.count(name, value)
             return packed
     with obs.span(
         "solver.dispatch_chunk", max_moves=max_moves, batch=batch,
         engine=engine, mode=mode,
     ):
         if mode == "polish":
-            from kafkabalancer_tpu_torch.solvers.polish import (
-                converge_session,
-                entry_table,
-            )
+            from kafkabalancer_tpu_torch.solvers.polish import converge_session
 
-            ew, ep, er, evalid = entry_table(
-                dp, cfg.min_replicas_for_rebalancing
-            )
             packed = converge_session(
-                loads, d.replicas, d.allowed, *common,
-                torch.from_numpy(ew).to(device, dtype),
-                torch.from_numpy(ep).to(device, torch.long),
-                torch.from_numpy(er).to(device, torch.long),
-                torch.from_numpy(evalid).to(device),
+                loads, d.replicas, d.allowed, *common, *entries,
                 max_moves=max_moves, allow_leader=cfg.allow_leader_rebalancing,
                 batch=max(1, batch), engine=engine, all_allowed=all_allowed,
                 scorer=scorer, **colo,

@@ -22,9 +22,11 @@ The pins:
   4 and no padded slot in the port; ``microbatched`` and ``mb_occupancy``
   equal the JAX daemon's in oneshot mode (its continuous loop can round
   a member alone, so there its counts only add up); each request's own
-  gauges show its fusion; declined requests (leader, pallas, polish,
-  colocation, batch 1, ``-solver=tpu``, the chaos replay's) run solo with
-  unchanged plans.
+  gauges show its fusion; the polish, colocation and batch-1 requests
+  (tests/test_torch_fused_kinds.py holds their batched sessions) fuse
+  the same way, two clients at once, against the JAX daemon; declined
+  requests (leader, pallas, ``-solver=tpu``, the chaos replay's) run solo
+  with unchanged plans.
 """
 
 import io
@@ -311,19 +313,16 @@ def test_microbatch_member_leaving_releases_the_barrier(pkg):
     assert out == [None]  # solo fallback, no deadlock
 
 
-# the reference declines the kernel engines and the leader session; the
-# port declines those and the three sessions it does not batch yet
+# the reference declines the kernel engines and the leader session; so
+# does the port, and a custom scorer (which only a check passes)
 DECLINES = [
     ("pallas", {"engine": "pallas", "leader": False},
      {"engine": "pallas", "mode": "move", "batch": 4, "n_topics": 0}),
     ("leader", {"engine": "xla", "leader": True},
      {"engine": "xla", "mode": "leader", "batch": 4, "n_topics": 0}),
-    ("polish", None,
-     {"engine": "xla", "mode": "polish", "batch": 4, "n_topics": 0}),
-    ("colocation", None,
-     {"engine": "xla", "mode": "move", "batch": 4, "n_topics": 64}),
-    ("batch1", None,
-     {"engine": "xla", "mode": "move", "batch": 1, "n_topics": 0}),
+    ("scorer", None,
+     {"engine": "xla", "mode": "move", "batch": 4, "n_topics": 0,
+      "scorer": True}),
 ]
 
 
@@ -404,10 +403,16 @@ def test_continuous_batcher_mid_session_admission(pkg):
         def __init__(self, max_k):
             super().__init__(max_k)
             self.first_offer_done = threading.Event()
+            self.b_admitted = threading.Event()
 
         def dispatch(self, args, statics):
             out = super().dispatch(args, statics)
-            self.first_offer_done.set()
+            if not self.first_offer_done.is_set():
+                self.first_offer_done.set()
+                # A's chunk 2 is offered only once B is admitted: on a
+                # loaded machine A could otherwise offer it alone first
+                # (and, with its last chunk, leave before B joins)
+                assert self.b_admitted.wait(60)
             return out
 
     cb = FirstOfferSignal(4)
@@ -425,6 +430,7 @@ def test_continuous_batcher_mid_session_admission(pkg):
     assert cb.first_offer_done.wait(60), "A never offered chunk 1"
     tb = threading.Thread(target=run, args=(1, 1, 2))
     cb.admit()
+    cb.b_admitted.set()
     tb.start()
     ta.join(120)
     tb.join(120)
@@ -712,9 +718,9 @@ ADMISSION = [
     (["-fused=true", "-rebalance-leader=true"], False, False),
     (["-fused=true", "-fused-engine=pallas"], False, False),
     (["-fused=true", "-fused-shard=true"], False, False),
-    (["-fused=true", "-fused-polish=true"], True, False),
-    (["-fused=true", "-anti-colocation=0.001"], True, False),
-    (["-fused=true", "-fused-batch=1"], True, False),
+    (["-fused=true", "-fused-polish=true"], True, True),
+    (["-fused=true", "-anti-colocation=0.001"], True, True),
+    (["-fused=true", "-fused-batch=1"], True, True),
     (["-solver=tpu"], False, False),
     ([], False, False),
 ]
@@ -749,9 +755,10 @@ def variant_files(d, n):
 FUSED = ["-input-json", "-fused", "-fused-batch=4", "-max-reassign=4"]
 
 
-def served_round(pkg, daemon_kw, paths, extra=()):
+def served_round(pkg, daemon_kw, paths, extra=(), base=FUSED):
     """Four (or len(paths)) concurrent clients of ``pkg``'s daemon with
-    ``daemon_kw``; returns (results, stats doc)."""
+    ``daemon_kw``, each with the flags ``base`` and ``extra``; returns
+    (results, stats doc)."""
     p = package(pkg)
     sock_dir = tempfile.mkdtemp(prefix="kbb-")
     d = PkgDaemon(p, os.path.join(sock_dir, "kb.sock"), lanes=0,
@@ -763,9 +770,9 @@ def served_round(pkg, daemon_kw, paths, extra=()):
         results = [None] * len(paths)
 
         def client(i):
-            results[i] = run_pkg(p, FUSED + [f"-input={paths[i]}",
-                                             f"-serve-socket={sock}",
-                                             *extra])
+            results[i] = run_pkg(p, list(base) + [f"-input={paths[i]}",
+                                                  f"-serve-socket={sock}",
+                                                  *extra])
 
         run_members(client, len(paths))
         doc = p.client.fetch_stats(sock)
@@ -888,17 +895,58 @@ def test_fused_members_explain_their_own_plans():
     assert [doc_of(g[1]) for g in got] == want
 
 
+# the three kinds the port's lanes fuse besides the plain move session,
+# as the reference's do
+FUSED_KINDS = {
+    "polish": ["-input-json", "-fused", "-fused-polish", "-fused-batch=4",
+               "-max-reassign=4"],
+    "colocation": ["-input-json", "-fused", "-fused-batch=4",
+                   "-anti-colocation=0.001", "-max-reassign=4"],
+    "batch1": ["-input-json", "-fused", "-fused-batch=1",
+               "-complete-partition=false", "-max-reassign=4"],
+}
+
+
+@pytest.mark.parametrize("mode", ["continuous", "oneshot"])
+@pytest.mark.parametrize("kind", sorted(FUSED_KINDS))
+def test_served_kinds_fuse_like_the_reference(kind, mode, one_jax_device):
+    """Two concurrent clients of one kind, against the JAX daemon under
+    the same flags: each plan is its -no-daemon plan and the JAX
+    daemon's; the port fuses both in one round; ``microbatched`` and
+    ``mb_occupancy`` equal the JAX daemon's in oneshot mode (in
+    continuous mode its loop can round a member alone: its counts only
+    add up)."""
+    d = tempfile.mkdtemp(prefix="kbb-")
+    try:
+        paths = variant_files(d, 2)
+        base = FUSED_KINDS[kind]
+        want = [run_pkg(package("torch"), base + [f"-input={p}",
+                                                  "-no-daemon"])
+                for p in paths]
+        kw = dict(microbatch=4, admission_hold=2, batch_mode=mode)
+        got = {pkg: served_round(pkg, kw, paths, base=base) for pkg in PKGS}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (jres, jdoc), (tres, tdoc) = got["jax"], got["torch"]
+    assert all(w[0] == 0 for w in want)
+    assert [r[:2] for r in tres] == [w[:2] for w in want]
+    assert [r[:2] for r in tres] == [r[:2] for r in jres]
+    assert tdoc["microbatched"] == 2 and tdoc["mb_occupancy"] == {"2": 1}
+    assert tdoc["mb_padded_slots"] == 0
+    if mode == "oneshot":
+        assert jdoc["microbatched"] == tdoc["microbatched"]
+        assert jdoc["mb_occupancy"] == tdoc["mb_occupancy"]
+    else:
+        occ = {int(k): v for k, v in jdoc["mb_occupancy"].items()}
+        assert jdoc["microbatched"] == sum(k * v for k, v in occ.items())
+        assert jdoc["microbatched"] <= 2
+
+
 # every declined kind, two concurrent clients each, in both modes: solo
 DECLINED = {
     "leader": ["-fused", "-rebalance-leader", "-complete-partition=false",
                "-max-reassign=4"],
     "pallas": ["-fused", "-fused-engine=pallas", "-fused-batch=4",
-               "-max-reassign=4"],
-    "polish": ["-fused", "-fused-polish", "-fused-batch=4",
-               "-max-reassign=4"],
-    "colocation": ["-fused", "-fused-batch=4", "-anti-colocation=0.001",
-                   "-max-reassign=4"],
-    "batch1": ["-fused", "-fused-batch=1", "-complete-partition=false",
                "-max-reassign=4"],
     "solver-tpu": ["-solver=tpu", "-max-reassign=2"],
 }

@@ -843,6 +843,155 @@ def test_session_batched_on_the_card_matches_solo_sessions(
         assert torch.equal(packed[k].cpu(), solo[k]), k
 
 
+
+def _card_instances(cuda_device, allow_leader, seeds=(21, 22, 23),
+                    shape=(3000, 60)):
+    """Settled zipf-topic clusters of one bucket on the card: each one's
+    11 session tensors, topic ids and polish entry table."""
+    from kafkabalancer_tpu_torch.ops.cost import broker_loads
+    from kafkabalancer_tpu_torch.ops.tensorize import (
+        all_allowed_of,
+        tensorize,
+        to_device,
+    )
+    from kafkabalancer_tpu_torch.solvers import polish
+
+    dev = torch.device(cuda_device)
+    out = []
+    for seed in seeds:
+        pl = synth_cluster(*shape, rf=3, seed=seed, zipf_topics=True)
+        c = cfg(allow_leader)
+        scan._settle_head(pl, c, 10 ** 6)
+        dp = tensorize(pl, c)
+        d = to_device(dp, dev, torch.float32, all_allowed=all_allowed_of(dp))
+        loads = broker_loads(d.replicas, d.weights, d.nrep_cur, d.ncons,
+                             dp.bvalid.shape[0])
+        always = torch.from_numpy(scan._cfg_broker_mask(dp, c)).to(dev)
+        ew, ep, er, ev = polish.entry_table(dp, 2)
+        out.append(((loads, d.replicas, d.member, d.allowed, d.weights,
+                     d.nrep_cur, d.nrep_tgt, d.ncons, d.pvalid, always,
+                     d.bvalid),
+                    torch.from_numpy(dp.topic_id).to(dev, torch.long),
+                    (torch.from_numpy(ew).to(dev, torch.float32),
+                     torch.from_numpy(ep).to(dev, torch.long),
+                     torch.from_numpy(er).to(dev, torch.long),
+                     torch.from_numpy(ev).to(dev))))
+    return out
+
+
+def _stack(xs):
+    return [None if xs[0][j] is None else torch.stack([x[j] for x in xs])
+            for j in range(len(xs[0]))]
+
+
+@pytest.mark.parametrize("kind", ["colocation", "batch1"])
+def test_session_batched_kinds_on_the_card(cuda_device, kind):
+    """The instance-batched session in colocation mode (K1's colocation
+    variant over the instance axis) and at batch 1 over three clusters
+    of one bucket (one with budget 0): each log equal to its solo
+    session's and to the same fused run with the plain scorer; at batch
+    > 1 one batched launch per iteration and no solo launch, at batch 1
+    no launch."""
+    ins = _card_instances(cuda_device, allow_leader=True)
+    batch = 100 if kind == "colocation" else 1
+    budgets = [4000, 0, 4000] if batch > 1 else [150, 0, 150]
+    mus, lams = [1e-7, 1e-7, 1e-3], [0.001, 0.001, 0.004]
+    nt = 128  # 93 topics each: the 128 bucket
+    solo = []
+    for k in range(3):
+        ck = dict(topic_id=ins[k][1], lam=lams[k], n_topics=nt) \
+            if batch > 1 else {}
+        _r, _l, n, mp, msl, _ms, mt, _su = scan.session(
+            *ins[k][0], 2, mus[k], budgets[k], max_moves=4096,
+            allow_leader=True, batch=batch, **ck)
+        solo.append(torch.cat([mp, msl, mt, torch.tensor(
+            [n], dtype=torch.int32, device=mp.device)]).cpu())
+    st = _stack([x[0] for x in ins])
+    kw = dict(max_moves=4096, allow_leader=True, batch=batch)
+    if batch > 1:
+        kw.update(topic_id=torch.stack([x[1] for x in ins]), lam=lams,
+                  n_topics=nt)
+    sk.shard_score.launches = 0
+    sk.shard_score_batched.launches = 0
+    packed, iters, _secs = scan.session_batched(
+        *st, [2] * 3, mus, budgets, **kw)
+    launches = sk.shard_score_batched.launches
+    plain, _it, _s = scan.session_batched(
+        *st, [2] * 3, mus, budgets, scorer=sk.shard_score_batched_plain,
+        **kw)
+    assert sk.shard_score.launches == 0
+    assert launches == (max(iters) if batch > 1 else 0)
+    assert iters[1] == 0
+    for k in range(3):
+        assert torch.equal(packed[k].cpu(), solo[k]), k
+        assert torch.equal(plain[k].cpu(), solo[k]), k
+    assert int(packed[0, -1]) > 0
+
+
+@pytest.mark.parametrize("colo", [False, True])
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_converge_session_batched_on_the_card(cuda_device, allow_leader,
+                                              colo):
+    """The batched polish alternation over three clusters of one bucket
+    (one with budget 0): each log equal to its solo alternation's and to
+    the same fused run with the plain scorer."""
+    from kafkabalancer_tpu_torch.solvers import polish
+
+    ins = _card_instances(cuda_device, allow_leader)
+    budgets, mus, lams = [100000, 0, 100000], [1e-7, 1e-7, 1e-3], [
+        0.001, 0.001, 0.004]
+    nt = 128  # 93 topics each: the 128 bucket
+    solo = []
+    for k in range(3):
+        t, tid, table = ins[k]
+        ck = dict(topic_id=tid, lam=lams[k], n_topics=nt) if colo else {}
+        solo.append(polish.converge_session(
+            t[0], t[1], t[3], *t[4:11], 2, mus[k], budgets[k], *table,
+            max_moves=8192, allow_leader=allow_leader, batch=100,
+            **ck).cpu())
+    st = _stack([x[0] for x in ins])
+    table = _stack([x[2] for x in ins])
+    kw = dict(max_moves=8192, allow_leader=allow_leader, batch=100)
+    if colo:
+        kw.update(topic_id=torch.stack([x[1] for x in ins]), lam=lams,
+                  n_topics=nt)
+    sk.shard_score.launches = 0
+    packed, counters = polish.converge_session_batched(
+        st[0], st[1], st[3], *st[4:11], [2] * 3, mus, budgets, *table, **kw)
+    plain, _c = polish.converge_session_batched(
+        st[0], st[1], st[3], *st[4:11], [2] * 3, mus, budgets, *table,
+        scorer=sk.shard_score_batched_plain, **kw)
+    assert sk.shard_score.launches == 0
+    for k in range(3):
+        assert torch.equal(packed[k].cpu(), solo[k]), k
+        assert torch.equal(plain[k].cpu(), solo[k]), k
+    assert int(packed[0, -1]) > 0 and counters[1] == {}
+
+
+@pytest.mark.parametrize("allow_leader", [False, True])
+def test_batched_colocation_kernel_at_the_main_bucket(cuda_device,
+                                                      allow_leader):
+    """K1's colocation variant over four instances of the 10k x 100
+    bucket (P = 16384, B = 128) in one launch: each instance's eight
+    outputs equal a solo launch's and the plain version's."""
+    per = [synthetic(16384, 128, cuda_device, seed) for seed in range(4)]
+    st = [None if per[0][j] is None
+          else torch.stack([x[j] for x in per]).contiguous()
+          for j in range(12)]
+    st[3] = None  # every broker allowed, as the main path
+    n0 = sk.shard_score_batched.launches
+    got = sk.shard_score_batched(*st[:11], c_rows=st[11],
+                                 allow_leader=allow_leader)
+    assert sk.shard_score_batched.launches == n0 + 1
+    ref = sk.shard_score_batched_plain(*st[:11], c_rows=st[11],
+                                       allow_leader=allow_leader)
+    torch.cuda.synchronize()
+    for k, a in enumerate(per):
+        solo = sk.shard_score(*a[:3], None, *a[4:11], c_rows=a[11],
+                              allow_leader=allow_leader)
+        for x, y, z in zip(got, solo, ref):
+            assert torch.equal(x[k], y) and bool((x[k] == z[k]).all())
+
 def test_served_fused_round_on_the_card(cuda_device, tmp_path):
     """Two held same-bucket -fused clients of a daemon with
     -serve-microbatch=2 -serve-admission-hold=2 on the card: one fused

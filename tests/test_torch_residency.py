@@ -664,3 +664,52 @@ def test_stats_doc_and_memory_block_carry_residency():
 
         tobs.set_shared_registry(False)
         tobs.TRACER.disable()
+
+
+BATCHED_PATHS = {
+    "polish": ["-fused-polish", "-fused-batch=100", "-allow-leader"],
+    "colocation": ["-anti-colocation=0.001"],
+    "batch1": ["-fused-batch=1", "-complete-partition=false"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(BATCHED_PATHS))
+def test_batched_session_paths_leave_pooled_inputs_unchanged(path):
+    """Two concurrent clients of a hold-2 lane per batched kind (the
+    polish alternation, the colocation objective, batch 1) run one
+    instance-batched session; each plan is its -no-daemon plan and the
+    lane's pool stays intact."""
+    p = package("torch")
+    d = tempfile.mkdtemp(prefix="kbr-")
+    dd = PkgDaemon(p, os.path.join(d, "kb.sock"), lanes=0, microbatch=4,
+                   admission_hold=2)
+    try:
+        paths = variant_paths(d, 2)
+        flags = FUSED + BATCHED_PATHS[path]
+        want = [run_pkg(p, flags + [f"-input={x}", "-no-daemon"])
+                for x in paths]
+        daemon = dd.start()
+        daemon._coalescer._hold_window_s = 30.0
+        res = [None] * 2
+
+        def client(i):
+            res[i] = run_pkg(p, flags + [f"-input={paths[i]}",
+                                         f"-serve-socket={dd.sock}"])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        doc = p.client.fetch_stats(dd.sock)
+        assert doc["microbatched"] == 2
+        assert [r[:2] for r in res] == [w[:2] for w in want]
+        assert all(r[0] == 0 for r in res)
+        assert_pool_intact(daemon._lanes[0].stage_cache)
+    finally:
+        dd.stop()
+        shutil.rmtree(d, ignore_errors=True)
+        from kafkabalancer_tpu_torch import obs as tobs
+
+        tobs.set_shared_registry(False)
